@@ -1,0 +1,52 @@
+"""The port stands alone: nothing under ``src_torch/`` and not
+``chip_smoke.py`` imports JAX or the reference package, and importing
+the serving path leaves JAX unloaded."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted((ROOT / "src_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_files_import_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [(f.relative_to(ROOT).as_posix(), mod)
+           for f in files for mod in _imported_modules(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_serving_path_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
+        "import repro_torch.serve.mtl, repro_torch.kernels.mtl_score.ops\n"
+        "import repro_torch.interop\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
