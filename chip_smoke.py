@@ -8,29 +8,44 @@ Phases, each ending in ``torch.cuda.synchronize()``; any failed check
 raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
-2. the build of every kernel of the serving path from the sources in
-   this checkout (``nvcc`` into ``src_torch/repro_torch/_build/``);
+2. the build of every kernel from the sources in this checkout, one
+   ``nvcc`` per source, all started together (into
+   ``src_torch/repro_torch/_build/``), with each build's ``ptxas`` line;
 3. each kernel against its plain PyTorch version on the card, on the
-   same inputs, at the serving point and at edge shapes, then its time
-   beside the plain version, one PyTorch expression for the same
+   same inputs, at the main paths' shapes and at edge shapes, then its
+   time beside the plain version, one PyTorch expression for the same
    function, and the least time the card could take;
 4. the serving path at full width (p=2048, m=4096, r=4, the acceptance
    point of the reference's serve benchmark): factorize a seeded rank-4
    W plus noise on the card, publish it to a store, load it, serve 1024
    mixed-task requests in waves of 256, predict, route by key, onboard
    an unseen task from 8 shots, serve from an int8 table, swap, and
-   hot-reload a newer store step — with the launch counters set to 0
-   just before and read just after;
+   hot-reload a newer store step;
 5. the end-to-end latency of one 1024-request ``score`` call, as a
    client sees it, over 50 calls in steady state, and the device kernels
-   ``torch.profiler`` records over 10 such calls.
+   ``torch.profiler`` records over 10 such calls;
+6. solver path A, the squared raw path at the reference's largest solver
+   spec (``benchmarks/solver_bench.py`` FULLSP: p=2048, m=768, n=64,
+   r=4, gram=False): ProxGD for 50 and 25 rounds with the lazy and the
+   exact spectral master, then ``factorize(4)`` -> ``MTLServer`` -> one
+   wave of 256 requests, and a ``torch.profiler`` window over one lazy
+   solve;
+7. solver path B, the logistic path at the reference's headline solver
+   spec (FULL: p=200, m=32, n=2000, r=5): DGSP for 10 rounds and ProxGD
+   for 50, on the card and through the port on the CPU, same data;
+8. solver path C, the paper's Fig-1 claims at its base spec (p=100,
+   m=30, r=5, n=50) with the ten methods of
+   ``benchmarks/fig1_regression.py``.
 
-It prints a ``{"kernels": [...]}`` line and, last, the contract line
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the package beside it, it exits non-zero and prints no result.
+Phases 4 and 6-8 each set the launch counters to 0 just before they run
+and read them just after.  It prints a ``{"kernels": [...]}`` line and,
+last, the contract line ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the package beside it, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import pathlib
@@ -62,6 +77,19 @@ KERNEL_RTOL = 1e-5
 SERVE_RTOL = 1e-5
 INT8_REL_RMS = 5e-2              # the reference's documented int8 bound
 ONBOARD_REL = 1e-2               # 8 noise-free shots in a rank-4 subspace
+# mtl_grad vs plain: the same f32 products, summed in another order
+# (one CTA walks the rows in order vs cuBLAS), ~1e-7 of the scale
+GRAD_RTOL = 1e-5
+# solver path A: the reference's spectral spec (solver_bench.py:66) and
+# its documented lazy-vs-exact bound (solver_bench.py:70)
+FULLSP = dict(p=2048, m=768, n=64, r=4, rounds=50, lam=0.0013, sv_rank=8,
+              noise=0.05)
+SPECTRAL_W_TOL = 1e-5
+# solver path B: the reference's headline solver spec (solver_bench.py:48)
+# with classification labels; card vs CPU within the solver bound
+FULL = dict(p=200, m=32, n=2000, r=5)
+FULL_METHODS = (("dgsp", {"rounds": 10}), ("proxgd", {"rounds": 50, "lam": 0.02}))
+SOLVER_W_RTOL = 1e-4
 
 REPO = pathlib.Path(__file__).resolve().parent
 
@@ -155,9 +183,429 @@ def least_ms(B, p, r, n_unique, x_bytes, u_bytes, code_bytes):
     nbytes = (B * p * x_bytes + p * r * u_bytes + B * 8
               + n_unique * (r * code_bytes + 4))
     flops = 2 * B * p * r + 3 * B * r
+    return bound_ms(nbytes, flops)
+
+
+def bound_ms(nbytes, flops):
+    """The larger of bytes over the memory rate and flops over the f32
+    rate, in ms, with the one that bounds."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grad_bound_ms(m, n, p, x_bytes):
+    """Least time for one ``task_gradients`` call: X, y and W read once,
+    G written once, against a dot and an axpy per element of X."""
+    return bound_ms(m * n * p * x_bytes + 4 * m * n + 8 * m * p,
+                    4 * m * n * p)
+
+
+# ---------------------------------------------------------------------------
+# §5 simulation data (the reference's data/synthetic.py construction),
+# drawn with a seeded numpy generator on the host so that the CPU tests
+# rebuild the same draw; the products run on ``device``
+# ---------------------------------------------------------------------------
+def sim_data(p, m, r, n, seed, device, task="regression", noise=1.0,
+             corr_decay=1.0):
+    """(Xs (m,n,p), ys (m,n), W* (p,m), Sigma (p,p)) f32 tensors on
+    ``device``: W* = U diag(1.5^-i) Vᵀ from the port's top-r factors of
+    A Bᵀ (A, B standard normal), x ~ N(0, Sigma) with
+    Sigma_ab = 2^(-c|a-b|), y = <w*_j, x> + noise·N(0,1) (regression) or
+    ±1 with P(+1) = sigmoid(<w*_j, x>) (classification)."""
+    from repro_torch.core.spectral import truncate_factors
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    A = rng.standard_normal((p, r), dtype=f32)
+    B = rng.standard_normal((m, r), dtype=f32)
+    Z = rng.standard_normal((m, n, p), dtype=f32)
+    if task == "regression":
+        eps = rng.standard_normal((m, n), dtype=f32)
+    elif task == "classification":
+        eps = rng.random((m, n), dtype=f32)
+    else:
+        raise ValueError(task)
+    idx = np.arange(p)
+    Sigma = (2.0 ** (-corr_decay * np.abs(idx[:, None] - idx[None, :])))
+    chol = np.linalg.cholesky(Sigma + 1e-9 * np.eye(p)).astype(f32)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    U, _, V = truncate_factors(dev(A) @ dev(B).T, r)
+    s = (1.0 / 1.5) ** torch.arange(r, dtype=torch.float32, device=U.device)
+    Wstar = (U * s[None, :]) @ V.T
+    Xs = dev(Z) @ dev(chol).T
+    del Z
+    margins = torch.einsum("mnp,pm->mn", Xs, Wstar)
+    if task == "regression":
+        ys = margins + noise * dev(eps)
+    else:
+        ys = torch.where(dev(eps) < torch.sigmoid(margins), 1.0, -1.0)
+    return Xs, ys, Wstar, dev(Sigma.astype(f32))
+
+
+def excess_risk(W, Wstar, Sigma) -> float:
+    """E L(W) - E L(W*) = (1/2m) sum_j (w_j - w*_j)ᵀ Sigma (w_j - w*_j)."""
+    D = W - Wstar
+    return float(0.5 * torch.mean(torch.einsum("pm,pq,qm->m", D, Sigma, D)))
+
+
+# The reference's Fig-1 methods and hyper-parameters
+# (benchmarks/fig1_regression.py METHODS), and its claims check.
+FIG1 = dict(p=100, m=30, r=5, n=50)
+FIG1_SEED = 0
+FIG1_METHODS = [
+    ("local", {}),
+    ("centralize", {"lam": 0.02}),
+    ("bestrep", {}),
+    ("proxgd", {"lam": 0.02, "rounds": 80, "record_every": 2}),
+    ("accproxgd", {"lam": 0.02, "rounds": 80, "record_every": 2}),
+    ("admm", {"lam": 0.02, "rho": 0.5, "rounds": 80, "record_every": 2}),
+    ("dfw", {"rounds": 80, "record_every": 2}),
+    ("dgsp", {"rounds": 10}),
+    ("dnsp", {"rounds": 10, "damping": 0.5, "l2": 1e-3}),
+    ("svd_trunc", {}),
+]
+
+
+def rounds_to_target(curve, target: float) -> int:
+    for rnd, e in curve:
+        if e <= target:
+            return rnd
+    return 10 ** 9
+
+
+def check_claims(curves, label: str) -> None:
+    """The paper's Fig-1 claims on the validation-selected (best-on-curve)
+    point of each method: nuclear-norm centralize and DNSP beat Local,
+    and DNSP reaches 1.5x centralize's error in no more rounds than
+    ProxGD or DFW."""
+    best = {k: min(e for _, e in v) for k, v in curves.items()}
+    check(best["centralize"] < best["local"],
+          f"{label}: nuclear norm should beat Local")
+    check(best["dnsp"] < best["local"], f"{label}: DNSP should beat Local")
+    target = 1.5 * best["centralize"]
+    r_dnsp = rounds_to_target(curves["dnsp"], target)
+    r_proxgd = rounds_to_target(curves["proxgd"], target)
+    r_dfw = rounds_to_target(curves["dfw"], target)
+    check(r_dnsp <= r_proxgd, f"{label}: DNSP ({r_dnsp}) should need <= "
+          f"rounds than ProxGD ({r_proxgd})")
+    check(r_dnsp <= r_dfw, f"{label}: DNSP vs DFW ({r_dnsp} vs {r_dfw})")
+
+
+def fig1_curves(solve, prob, Wstar, Sigma, U_star):
+    """Excess-risk curves of the ten Fig-1 methods through ``solve``."""
+    curves = {}
+    for name, kw in FIG1_METHODS:
+        extra = {"U_star": U_star} if name == "bestrep" else {}
+        res = solve(prob, method=name, **kw, **extra)
+        curves[name] = [(rnd, excess_risk(W, Wstar, Sigma))
+                        for rnd, W in zip(res.rounds_axis, res.iterates)]
+    return curves
+
+
+def profile_kernels(fn):
+    """Device kernel time by name that ``torch.profiler`` records while
+    ``fn()`` runs, and the wall time of that window in µs (the
+    profiler's per-op cost is inside the window, its start and its
+    export are not)."""
+    from repro_torch.obs.tracing import TORCH_TRACE_JSON, profiler_session
+    with tempfile.TemporaryDirectory() as tdir:
+        with profiler_session(tdir):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        events = json.loads((pathlib.Path(tdir) / TORCH_TRACE_JSON).read_text())
+    kernels = {}
+    for ev in events.get("traceEvents", []):
+        if ev.get("cat") == "kernel":
+            kernels[ev["name"]] = kernels.get(ev["name"], 0.0) + ev["dur"]
+    return kernels, window_us
+
+
+def describe_profile(kernels, window_us, top=5) -> str:
+    busy_us = sum(kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return (f"device busy {busy_us:.1f} us of {window_us:.1f} us wall "
+            f"({100 * busy_us / window_us:.2f} %); by kernel: "
+            + ("; ".join(f"{name[:60]} {us:.1f} us" for name, us in ranked)
+               if ranked else "no device kernels recorded (not measured)"))
+
+
+def build_all(kernels) -> None:
+    """One ``nvcc`` per source, all started together; log each build's
+    time and ``ptxas`` summary."""
+    from repro_torch.kernels import _build
+
+    def one(k):
+        t0 = time.perf_counter()
+        k.build()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        secs = dict(zip(kernels, pool.map(one, kernels.values())))
+    for name, k in kernels.items():
+        lib = _build.library_path(name, k.SOURCE)
+        ptxas = lib.with_suffix(".log").read_text()
+        regs = sorted({int(v) for v in re.findall(r"Used (\d+) registers", ptxas)})
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", ptxas))
+        log(f"[build] {name}: {lib.relative_to(REPO)} in {secs[name]:.2f} s; "
+            f"{len(re.findall('Used', ptxas))} instantiations, registers "
+            f"{regs[0]}-{regs[-1]}, {spills} bytes spilled")
+        for line in ptxas.splitlines():
+            if "Used" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3, mtl_grad
+# ---------------------------------------------------------------------------
+def grad_inputs(gen, m, n, p, loss, x_dtype, w_scale=1.0):
+    dev = "cuda"
+    X = torch.randn(m, n, p, generator=gen, device=dev).to(x_dtype)
+    y = torch.randn(m, n, generator=gen, device=dev)
+    if loss == "logistic":
+        y = torch.where(y >= 0, 1.0, -1.0)
+    W = w_scale * torch.randn(m, p, generator=gen, device=dev) / math.sqrt(p)
+    return X, y, W
+
+
+def grad_library(X, y, W, loss):
+    """The library yardstick: two batched gemms around the loss
+    derivative (reads X twice).  The port never calls it."""
+    pred = torch.bmm(X, W.unsqueeze(2)).squeeze(2)
+    r = pred - y if loss == "squared" else -y * torch.sigmoid(-y * pred)
+    return torch.bmm(r.unsqueeze(1), X).squeeze(1) / X.shape[1]
+
+
+GRAD_MAIN = (("FULLSP squared", FULLSP["m"], FULLSP["n"], FULLSP["p"], "squared"),
+             ("FULL logistic", FULL["m"], FULL["n"], FULL["p"], "logistic"))
+
+
+def grad_kernel_phase(gen):
+    """mtl_grad against its plain version at the solver paths' shapes and
+    at edge shapes (each launched twice: the bytes must not move), then
+    its times at the two main shapes."""
+    from repro_torch.kernels.mtl_grad import ops as grad_ops
+    from repro_torch.kernels.mtl_grad.ref import task_gradients_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(name, m, n, p, loss, f32, 1.0) for name, m, n, p, loss in GRAD_MAIN]
+    cases += [(name + " bf16 X", m, n, p, loss, bf16, 1.0)
+              for name, m, n, p, loss in GRAD_MAIN]
+    cases += [
+        ("ragged m=3 n=300 p=37 squared", 3, 300, 37, "squared", f32, 1.0),
+        ("ragged m=3 n=300 p=37 logistic", 3, 300, 37, "logistic", f32, 1.0),
+        ("m=1 n=1 p=5 logistic", 1, 1, 5, "logistic", f32, 1.0),
+        ("n=513 p=2047 bf16 squared", 2, 513, 2047, "squared", bf16, 1.0),
+        ("n=33 p=4101 logistic", 2, 33, 4101, "logistic", f32, 1.0),
+        ("logistic |pred|~1e3", 4, 257, 130, "logistic", f32, 1e3),
+    ]
+    max_abs_err = 0.0
+    for name, m, n, p, loss, xdt, ws in cases:
+        X, y, W = grad_inputs(gen, m, n, p, loss, xdt, ws)
+        G = grad_ops.task_gradients(X, y, W, loss=loss)
+        G2 = grad_ops.task_gradients(X, y, W, loss=loss)
+        ref = task_gradients_ref(X, y, W, loss=loss)
+        torch.cuda.synchronize()
+        check(G.shape == (m, p) and G.dtype == f32 and
+              bool(torch.isfinite(G).all()), f"{name}: bad output")
+        check(torch.equal(G, G2), f"{name}: two launches gave different bytes")
+        scale = float(ref.abs().max())
+        err = float((G - ref).abs().max())
+        log(f"[kernel] mtl_grad {name:34s} max|err| {err:.3e} / max|G| "
+            f"{scale:.3e} (tol {GRAD_RTOL:g} x max|G|); relaunch bitwise equal")
+        check(err <= GRAD_RTOL * scale, f"{name}: kernel disagrees with the "
+              f"plain version: {err} > {GRAD_RTOL} * {scale}")
+        if xdt == f32 and (m, n, p) in {(c[1], c[2], c[3]) for c in GRAD_MAIN}:
+            max_abs_err = max(max_abs_err, err)
+        del X, y, W, G, G2, ref
+    rows = []
+    for name, m, n, p, loss in GRAD_MAIN:
+        X, y, W = grad_inputs(gen, m, n, p, loss, f32)
+
+        def kern():
+            return grad_ops.task_gradients(X, y, W, loss=loss)
+
+        k_ms = time_ms(kern, reps=20, inner=10)
+        g_ms = graph_ms(kern, reps=20, inner=10)
+        p_ms = time_ms(lambda: task_gradients_ref(X, y, W, loss=loss),
+                       reps=20, inner=10)
+        lib_ms = time_ms(lambda: grad_library(X, y, W, loss), reps=20, inner=10)
+        b_ms, b_by = grad_bound_ms(m, n, p, 4)
+        rows.append({"shape": {"m": m, "n": n, "p": p, "loss": loss,
+                               "x_dtype": "f32"},
+                     "kernel_ms": k_ms, "kernel_graph_ms": g_ms,
+                     "plain_ms": p_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[time] mtl_grad {name:15s} kernel {k_ms * 1e3:9.2f} us (graph "
+            f"{g_ms * 1e3:9.2f} us)  plain {p_ms * 1e3:9.2f} us  library "
+            f"{lib_ms * 1e3:9.2f} us  bound {b_ms * 1e3:8.3f} us ({b_by}); "
+            f"{m * n * p * 4 / (g_ms * 1e-3) / 1e12:.2f} TB/s of X")
+        del X, y, W
+    torch.cuda.synchronize()
+    return rows, max_abs_err
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8, the solver paths
+# ---------------------------------------------------------------------------
+def timed_solve(solve, prob, **kw):
+    t0 = time.perf_counter()
+    res = solve(prob, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def path_a(score_ops, grad_ops):
+    """The squared raw path at FULLSP: lazy and exact ProxGD, 50 and 25
+    rounds, then the solve feeds the slice-1 server on the card."""
+    import repro_torch
+    from repro_torch.core.methods import MTLProblem
+    from repro_torch.core.methods.convex import data_smoothness
+    from repro_torch.serve.mtl import MTLServer
+    sp = FULLSP
+    p, m, n, r, rounds = sp["p"], sp["m"], sp["n"], sp["r"], sp["rounds"]
+    half = rounds // 2
+    t0 = time.perf_counter()
+    Xs, ys, _, _ = sim_data(p, m, r, n, SEED, "cuda", noise=sp["noise"])
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    grad_ops.task_gradients.launches = 0       # count this path only
+    score_ops.mtl_score.launches = 0
+    prob = MTLProblem.make(Xs, ys, "squared", gram=False, A=2.0, r=r)
+    eta = 1.0 / data_smoothness(prob)          # once, shared by both engines
+    log(f"[path A] FULLSP p={p} m={m} n={n} r={r}: data {t_data:.2f} s on "
+        f"the host and the card, {Xs.numel() * 4 / 1e6:.1f} MB of designs; "
+        f"eta {eta:.6g}")
+    out, res = {"t_data_s": t_data, "eta": eta}, {}
+    kw = dict(method="proxgd", lam=sp["lam"], eta=eta, init="zeros",
+              sv_rank=sp["sv_rank"])
+    for engine in ("lazy", "exact"):
+        secs = {}
+        for R_ in (rounds, half):
+            n0 = grad_ops.task_gradients.launches
+            res[engine, R_], secs[R_] = timed_solve(
+                repro_torch.solve, prob, rounds=R_, sv_engine=engine, **kw)
+            got = grad_ops.task_gradients.launches - n0
+            check(got == R_, f"path A {engine} {R_} rounds launched mtl_grad "
+                  f"{got} times, want {R_}")
+        per_round = (secs[rounds] - secs[half]) / (rounds - half)
+        out[engine] = {"solve_s": secs[rounds], "half_s": secs[half],
+                       "round_s": per_round, "rounds_per_s": 1.0 / per_round,
+                       "sv_exact_rounds":
+                           res[engine, rounds].extras.get("sv_exact_rounds")}
+        log(f"[path A] proxgd {engine:5s}: {rounds} rounds {secs[rounds]:.3f} s, "
+            f"{half} rounds {secs[half]:.3f} s -> {per_round * 1e3:.3f} ms per "
+            f"round ({1.0 / per_round:.1f} rounds/s); exact-SVD rounds "
+            f"{out[engine]['sv_exact_rounds']}; mtl_grad launches = rounds")
+    lazy, exact = res["lazy", rounds], res["exact", rounds]
+    diff = float((lazy.W - exact.W).abs().max())
+    check(diff <= SPECTRAL_W_TOL, f"path A: lazy W drifted from exact by {diff}")
+    want = [e for k in range(1, rounds + 1)
+            for e in ((k, "worker->master", 1, p, "gradient column"),
+                      (k, "master->worker", 1, p, "updated predictor"))]
+    check(lazy.comm.ledger() == exact.comm.ledger() == want,
+          "path A: ledger is not 50 x (1 p-vector up, 1 down)")
+    check(bool(torch.isfinite(lazy.W).all()) and lazy.W.shape == (p, m),
+          "path A: bad W")
+    out["lazy_vs_exact_max_abs"] = diff
+    log(f"[path A] lazy vs exact max|dW| {diff:.3e} (tol {SPECTRAL_W_TOL:g}); "
+        f"ledgers equal, {rounds} x (1 p-vector up, 1 down)")
+
+    # the solve feeds the slice-1 server on the card
+    model = lazy.factorize(r)
+    check(model.device.type == "cuda", "path A: factorize left the card")
+    server = MTLServer(model, batch_size=WAVE)
+    rng = np.random.default_rng(SEED + 1)
+    ids = torch.from_numpy(rng.integers(0, m, WAVE).astype(np.int32)).cuda()
+    X = torch.from_numpy(rng.standard_normal((WAVE, p), dtype=np.float32)).cuda()
+    n0 = score_ops.mtl_score.launches
+    scores, _ = server.score(ids, X)
+    torch.cuda.synchronize()
+    own = (X * model.dense().index_select(1, ids.long()).T).sum(1)
+    err = float((scores - own).abs().max())
+    scale = float(own.abs().max())
+    check(score_ops.mtl_score.launches - n0 == 1 and
+          err <= SERVE_RTOL * scale, f"path A: served wave {err} > "
+          f"{SERVE_RTOL} * {scale}")
+    out["launches"] = {"mtl_grad": grad_ops.task_gradients.launches,
+                       "mtl_score": score_ops.mtl_score.launches}
+    log(f"[path A] factorize({r}) -> MTLServer -> {WAVE} requests in one "
+        f"launch: vs dense predictor max|err| {err:.3e} (tol {SERVE_RTOL:g} x "
+        f"{scale:.3e}); path launches {out['launches']}")
+
+    kernels, window_us = profile_kernels(lambda: repro_torch.solve(
+        prob, rounds=rounds, sv_engine="lazy", **kw))
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
+    out["profile"] = {"window_us": window_us, "kernel_us_top": top,
+                      "device_busy_us": sum(kernels.values()),
+                      "device_busy_share": sum(kernels.values()) / window_us
+                      if kernels else None}
+    log(f"[path A] profiled one lazy {rounds}-round solve: "
+        + describe_profile(kernels, window_us, top=8))
+    return out
+
+
+def path_b(grad_ops):
+    """The logistic path at FULL: DGSP and ProxGD on the card (raw
+    gradients through mtl_grad) and through the port on the CPU."""
+    import repro_torch
+    from repro_torch.core.methods import MTLProblem
+    Xs, ys, _, _ = sim_data(**FULL, seed=SEED, device="cuda",
+                            task="classification")
+    grad_ops.task_gradients.launches = 0
+    prob = MTLProblem.make(Xs, ys, "logistic", A=2.0, r=FULL["r"])
+    host = MTLProblem.make(Xs.cpu(), ys.cpu(), "logistic", A=2.0, r=FULL["r"],
+                           device="cpu")
+    out = {}
+    for method, kw in FULL_METHODS:
+        n0 = grad_ops.task_gradients.launches
+        card, t_card = timed_solve(repro_torch.solve, prob, method=method, **kw)
+        launched = grad_ops.task_gradients.launches - n0
+        check(launched == kw["rounds"], f"path B {method}: {launched} mtl_grad "
+              f"launches for {kw['rounds']} rounds")
+        t0 = time.perf_counter()
+        cpu = repro_torch.solve(host, method=method, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t0
+        Wc = card.W.cpu()
+        err = float((Wc - cpu.W).abs().max())
+        tol = SOLVER_W_RTOL * max(1.0, float(cpu.W.abs().max()))
+        check(bool(torch.isfinite(Wc).all()) and err <= tol,
+              f"path B {method}: card W differs from the CPU's by {err} > {tol}")
+        check(card.comm.ledger() == cpu.comm.ledger(),
+              f"path B {method}: ledgers differ")
+        out[method] = {"card_s": t_card, "cpu_s": t_cpu, "max_abs_err": err,
+                       "tol": tol, "mtl_grad_launches": launched,
+                       "sv_exact_rounds": [card.extras.get("sv_exact_rounds"),
+                                           cpu.extras.get("sv_exact_rounds")]}
+        log(f"[path B] {method:6s} {kw}: card {t_card:.3f} s, CPU {t_cpu:.3f} s;"
+            f" max|W_card - W_cpu| {err:.3e} (tol {tol:.3e}); ledgers equal; "
+            f"{launched} mtl_grad launches")
+    out["launches"] = {"mtl_grad": grad_ops.task_gradients.launches}
+    return out
+
+
+def path_c(grad_ops):
+    """The paper's Fig-1 claims at its base spec, on the card."""
+    import repro_torch
+    from repro_torch.core.methods import MTLProblem
+    from repro_torch.serve.mtl import FactoredModel
+    Xs, ys, Wstar, Sigma = sim_data(**FIG1, seed=FIG1_SEED, device="cuda")
+    grad_ops.task_gradients.launches = 0
+    t0 = time.perf_counter()
+    prob = MTLProblem.make(Xs, ys, "squared", A=2.0, r=FIG1["r"])
+    U_star = FactoredModel.from_W(Wstar, FIG1["r"]).U
+    curves = fig1_curves(repro_torch.solve, prob, Wstar, Sigma, U_star)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check_claims(curves, "fig1/base on the card")
+    best = {k: min(e for _, e in v) for k, v in curves.items()}
+    log(f"[path C] Fig-1 base spec, ten methods in {secs:.2f} s; claims hold; "
+        f"best excess risk " + ", ".join(f"{k} {v:.4f}" for k, v in best.items()))
+    return {"s": secs, "best_excess_risk": best,
+            "launches": {"mtl_grad": grad_ops.task_gradients.launches}}
 
 
 # ---------------------------------------------------------------------------
@@ -167,13 +615,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO / "src_torch"))
-    from repro_torch.kernels import _build
+    from repro_torch.kernels.mtl_grad import kernel as grad_kernel
+    from repro_torch.kernels.mtl_grad import ops as grad_ops
     from repro_torch.kernels.mtl_score import kernel as score_kernel
     from repro_torch.kernels.mtl_score import ops as score_ops
     from repro_torch.kernels.mtl_score.ref import (dequantize_codes,
                                                    mtl_score_ref,
                                                    quantize_codes)
-    from repro_torch.obs.tracing import TORCH_TRACE_JSON, profiler_session
     from repro_torch.serve.mtl import FactoredModel, MTLServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -187,16 +635,7 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     # -- 2. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    score_kernel.build()
-    t_build = time.perf_counter() - t0
-    lib = _build.library_path("mtl_score", score_kernel.SOURCE)
-    ptxas = lib.with_suffix(".log").read_text()
-    regs = sorted({int(v) for v in re.findall(r"Used (\d+) registers", ptxas)})
-    spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", ptxas))
-    log(f"[build] mtl_score: {lib.relative_to(REPO)} in {t_build:.2f} s; "
-        f"{len(re.findall('Used', ptxas))} instantiations, registers "
-        f"{regs[0]}-{regs[-1]}, {spills} bytes spilled")
+    build_all({"mtl_score": score_kernel, "mtl_grad": grad_kernel})
     torch.cuda.synchronize()
 
     # -- 3. kernel vs plain ------------------------------------------------
@@ -267,6 +706,8 @@ def main() -> int:
                 f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:8.2f}'} us"
                 f"  bound {b_ms * 1e3:7.3f} us ({b_by})")
     torch.cuda.synchronize()
+
+    grad_rows, grad_err = grad_kernel_phase(gen)
 
     # -- 4. the serving path at full width --------------------------------
     rng = np.random.default_rng(SEED)
@@ -389,55 +830,73 @@ def main() -> int:
             f"{t_score * 1e6:.1f} us")
 
         # where a call's time goes: the device kernels torch.profiler saw
-        # over 10 calls, against the wall time of the profiled window
-        # (the profiler's per-op cost is inside that window, its start and
-        # its export are not)
-        with tempfile.TemporaryDirectory() as tdir:
-            with profiler_session(tdir):
-                t0 = time.perf_counter()
-                for _ in range(10):
-                    server.score(ids, X)
-                torch.cuda.synchronize()
-                window_us = (time.perf_counter() - t0) * 1e6
-            events = json.loads(
-                (pathlib.Path(tdir) / TORCH_TRACE_JSON).read_text())
-        kernels = {}
-        for ev in events.get("traceEvents", []):
-            if ev.get("cat") == "kernel":
-                kernels[ev["name"]] = kernels.get(ev["name"], 0.0) + ev["dur"]
-        busy_us = sum(kernels.values())
-        busy = busy_us / window_us
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
-        log(f"[e2e] profiled 10 calls: device busy {busy_us:.1f} us of "
-            f"{window_us:.1f} us wall ({100 * busy:.2f} %); by kernel: "
-            + ("; ".join(f"{name[:60]} {us:.1f} us" for name, us in top)
-               if top else "no device kernels recorded (not measured)"))
+        # over 10 calls
+        def ten_calls():
+            for _ in range(10):
+                server.score(ids, X)
+
+        kernels, window_us = profile_kernels(ten_calls)
+        busy = sum(kernels.values()) / window_us
+        log("[e2e] profiled 10 calls: " + describe_profile(kernels, window_us))
     finally:
         shutil.rmtree(store, ignore_errors=True)
 
+    # -- 6-8. the solver paths ----------------------------------------------
+    a = path_a(score_ops, grad_ops)
+    b = path_b(grad_ops)
+    c = path_c(grad_ops)
+    grad_launches = (a["launches"]["mtl_grad"] + b["launches"]["mtl_grad"]
+                     + c["launches"]["mtl_grad"])
+    check(a["launches"]["mtl_grad"] > 0 and b["launches"]["mtl_grad"] > 0,
+          "the solver paths never launched mtl_grad")
+
     # -- results -----------------------------------------------------------
-    main_row = next(b for b in by_batch
-                    if b["B"] == WAVE and b["code_dtype"] == "f32")
+    main_row = next(b_ for b_ in by_batch
+                    if b_["B"] == WAVE and b_["code_dtype"] == "f32")
+    grad_row = grad_rows[0]                    # FULLSP, path A's shape
     result = {"kernels": [{
         "name": "mtl_score",
         "route": "cuda",
         "source": "src_torch/repro_torch/kernels/mtl_score/csrc/mtl_score.cu",
         "replaces": "src/repro/kernels/mtl_score/kernel.py:57",
-        "launches": main_launches,
+        "launches": main_launches + a["launches"]["mtl_score"],
+        "launches_by_path": {"serve": main_launches,
+                             "solver A": a["launches"]["mtl_score"]},
         "max_abs_err": max_abs_err,
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],
+        "kernel_graph_ms": main_row["kernel_graph_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": {"B": WAVE, "p": P, "m": M, "r": R, "code_dtype": "f32"},
         "by_batch": by_batch,
+    }, {
+        "name": "mtl_grad",
+        "route": "cuda",
+        "source": "src_torch/repro_torch/kernels/mtl_grad/csrc/mtl_grad.cu",
+        "replaces": "src/repro/kernels/mtl_grad/kernel.py:57",
+        "launches": grad_launches,
+        "launches_by_path": {"solver A": a["launches"]["mtl_grad"],
+                             "solver B": b["launches"]["mtl_grad"],
+                             "solver C": c["launches"]["mtl_grad"]},
+        "max_abs_err": grad_err,
+        "ms": grad_row["kernel_ms"],
+        "kernel_ms": grad_row["kernel_ms"],
+        "kernel_graph_ms": grad_row["kernel_graph_ms"],
+        "plain_ms": grad_row["plain_ms"],
+        "bound_ms": grad_row["bound_ms"],
+        "bound_by": grad_row["bound_by"],
+        "library_ms": grad_row["library_ms"],
+        "shape": grad_row["shape"],
+        "by_shape": grad_rows,
     }], "serve": {"requests_per_call": N_REQUESTS, "wave": WAVE,
                   "first_call_s": t_score, "p50_call_s": p50,
                   "max_call_s": worst, "requests_per_s_p50": N_REQUESTS / p50,
                   "profiled_device_busy_share": busy if kernels else None,
-                  "profiled_kernel_us": kernels}}
+                  "profiled_kernel_us": kernels},
+        "solver": {"A": a, "B": b, "C": c}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,21 @@ so each port module has an obvious counterpart to be tested against.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (:func:`repro_torch._device.resolve_device`); there is
-no silent CPU fallback.  The serving path's scoring kernel is written by
-hand in CUDA C++ for ``sm_90a`` (:mod:`repro_torch.kernels.mtl_score`).
+no silent CPU fallback.  Two paths are ported: the factored serving path
+(its scoring kernel, :mod:`repro_torch.kernels.mtl_score`) and the
+full-batch solvers on the simulated cluster behind :func:`solve` (the
+raw-path gradient kernel, :mod:`repro_torch.kernels.mtl_grad`); both
+kernels are written by hand in CUDA C++ for ``sm_90a``.
 """
 from ._device import resolve_device
 
-__all__ = ["resolve_device"]
+
+def __getattr__(name):
+    # lazy, so importing the serving path does not import the solvers
+    if name == "solve":
+        from .api import solve
+        return solve
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["resolve_device", "solve"]

@@ -1,0 +1,106 @@
+"""The front door: ``repro_torch.solve(prob, method=..., backend="sim")``.
+
+Port of ``repro.api.solve`` for the simulated cluster.  One call
+signature for every ported solver, returning an
+:class:`~repro_torch.core.methods.base.MTLResult`.  The result is also
+the hand-off to the serving half::
+
+    prob = MTLProblem.make(Xs, ys, "squared", gram=False)   # on the card
+    res = repro_torch.solve(prob, method="proxgd", rounds=50, lam=0.01)
+    model = res.factorize(rank=prob.r)        # (U, s, V) on the card
+    server = MTLServer(model)                 # mtl_score kernel per wave
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from ._device import DeviceLike, resolve_device
+from .obs.tracing import trace_span
+from .runtime.base import ProtocolRuntime, make_runtime
+
+
+def solve(prob, method: str = "dgsp", backend: str = "sim", *,
+          mesh=None, axis: str = "tasks", data_shards: int = 1,
+          data_axis: str = "data", rounds: Optional[int] = None,
+          scan: Optional[bool] = None, sv_engine: Optional[str] = None,
+          batch_size: Optional[int] = None,
+          local_steps: Optional[int] = None, batch_seed: int = 0,
+          runtime: Optional[ProtocolRuntime] = None,
+          verify: Optional[str] = None,
+          checkpoint_every: Optional[int] = None,
+          ckpt_dir: Optional[str] = None,
+          ckpt_keep: Optional[int] = 3,
+          metrics: bool = False, device: DeviceLike = None, **hp):
+    """Run one registered solver on the simulated cluster.
+
+    The reference's parameters keep their meaning.  What the port cannot
+    run yet raises ``NotImplementedError`` naming the ROADMAP item that
+    brings it: ``backend="mesh"`` and ``data_shards > 1`` (Queue 1 item
+    5), a configuration that stays stochastic once ``batch_size == n``
+    with ``local_steps == 1`` has been folded back to full batch (item
+    4), ``metrics=True`` (item 8), ``verify=`` (item 9) and
+    ``checkpoint_every=`` / ``ckpt_dir=`` (item 6).  ``scan`` is
+    accepted and changes nothing: both drivers are one eager loop.
+
+    ``device`` is where the solve runs, the card by default (raising
+    without one); ``prob`` must already lie there ("cuda" without an
+    index accepts any card).
+
+    ``result.extras`` carries ``loss`` (so ``res.factorize()`` builds
+    the serving artifact with the right math), ``backend``,
+    ``data_shards`` and the two collective-float counters (0 under sim).
+    """
+    from .core.methods import get_solver
+
+    dev = resolve_device(device)
+    if prob.device.type != dev.type or dev.index not in (None,
+                                                         prob.device.index):
+        raise ValueError(f"the problem lies on {prob.device}, the solve was "
+                         f"asked to run on {dev}; build the problem there "
+                         f"(MTLProblem.make(..., device=...))")
+    if batch_size is not None or local_steps is not None:
+        from .core.methods.base import STOCHASTIC_SOLVERS
+        if method not in STOCHASTIC_SOLVERS:
+            raise ValueError(
+                f"batch_size/local_steps need a gradient-served solver "
+                f"{STOCHASTIC_SOLVERS}; {method!r} is full-batch only")
+        hp["batch_size"] = batch_size
+        hp["local_steps"] = local_steps
+        hp["batch_seed"] = batch_seed
+    if metrics:
+        hp["metrics"] = True
+    if verify is not None:
+        raise NotImplementedError(
+            "verify= comes with the static checks, ROADMAP Queue 1 item 9")
+    if ckpt_dir is not None or checkpoint_every is not None:
+        raise NotImplementedError(
+            "checkpoint_every= / ckpt_dir= come with recovery, ROADMAP "
+            "Queue 1 item 6")
+    if runtime is None:
+        runtime = make_runtime(backend, prob, mesh=mesh, axis=axis,
+                               data_axis=data_axis, data_shards=data_shards)
+    if rounds is not None:
+        hp["rounds"] = rounds
+    if scan is not None:
+        hp["scan"] = scan
+    if sv_engine is not None:
+        hp["sv_engine"] = sv_engine
+    with trace_span("solve", method=method, backend=runtime.name,
+                    data_shards=runtime.data_shards, metrics=bool(metrics)):
+        res = get_solver(method)(prob, runtime=runtime, **hp)
+    # stamp the trained loss so res.factorize() builds the serving
+    # artifact with the right prediction/onboarding math by default
+    res.extras.setdefault("loss", prob.loss.name)
+    res.extras["backend"] = runtime.name
+    res.extras["data_shards"] = runtime.data_shards
+    res.extras["collective_floats_per_chip"] = \
+        runtime.collective_floats_per_chip
+    res.extras["data_collective_floats_per_chip"] = \
+        runtime.data_collective_floats_per_chip
+    return res
+
+
+def resume(ckpt_dir: str, *, mesh=None):
+    """Restart a checkpointed solve: not ported yet."""
+    raise NotImplementedError(
+        "resume comes with recovery, ROADMAP Queue 1 item 6")

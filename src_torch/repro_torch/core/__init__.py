@@ -1,2 +1,3 @@
 """The paper's math, ported piece by piece: losses, per-task linear
-models and the one-shot spectral truncation."""
+models, the communication ledger, the worker ops, the spectral master
+and the solver registry (:mod:`repro_torch.core.methods`)."""

@@ -1,11 +1,12 @@
 """Per-task linear-model primitives (port of ``repro.core.linear_model``).
 
-Everything here is written for a SINGLE task (X: (n, p), y: (n,)).  The
+Everything here is written for a SINGLE task (X: (n, p), y: (n,)) and
+is lifted over the task axis with ``torch.func.vmap`` by the batched
+helpers at the bottom and by :mod:`repro_torch.core.worker_ops`.  The
 per-task gradient keeps the 1/m factor of the global objective OUT, as
 the reference does, so the same helpers serve the global objective and
-the purely local ERM solves.  This slice needs them for few-shot
-onboarding (:func:`projected_erm`); the solver slice lifts them over the
-task axis.
+the purely local ERM solves.  The reference's ``fori_loop``s are plain
+loops with fixed trip counts.
 """
 from __future__ import annotations
 
@@ -54,6 +55,16 @@ def task_hessian(loss: Loss, w: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
     return Hm
 
 
+def newton_direction(loss: Loss, w: torch.Tensor, X: torch.Tensor,
+                     y: torch.Tensor, l2: float = 0.0,
+                     damping: float = 1e-6) -> torch.Tensor:
+    """(hess)^-1 grad — the DNSP worker message (Algorithm 6)."""
+    p = w.shape[0]
+    H = task_hessian(loss, w, X, y, l2) + damping * _eye(p, X)
+    g = task_grad(loss, w, X, y, l2)
+    return torch.linalg.solve(H, g)
+
+
 def solve_ridge(X: torch.Tensor, y: torch.Tensor, l2: float) -> torch.Tensor:
     """argmin_w (1/2n)||Xw - y||^2 + (l2/2)||w||^2, closed form."""
     n, p = X.shape
@@ -79,6 +90,13 @@ def erm_newton(loss: Loss, X: torch.Tensor, y: torch.Tensor, l2: float = 1e-4,
     return w
 
 
+def erm(loss: Loss, X: torch.Tensor, y: torch.Tensor, l2: float = 1e-4,
+        iters: int = 25) -> torch.Tensor:
+    if loss.name == "squared":
+        return solve_ridge(X, y, l2)
+    return erm_newton(loss, X, y, l2, iters)
+
+
 def projected_erm(loss: Loss, U: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
                   l2: float = 0.0, iters: int = 25
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -98,3 +116,30 @@ def projected_erm(loss: Loss, U: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
     else:
         v = erm_newton(loss, XU, y, max(l2, 1e-9), iters)
     return U @ v, v
+
+
+def project_l2_ball(w: torch.Tensor, radius: float) -> torch.Tensor:
+    nrm = torch.linalg.norm(w)
+    scale = torch.clamp(radius / torch.clamp(nrm, min=1e-12), max=1.0)
+    return w * scale
+
+
+# Batched (all-tasks) conveniences ------------------------------------------
+
+def all_task_grads(loss: Loss, W: torch.Tensor, Xs: torch.Tensor,
+                   ys: torch.Tensor, l2: float = 0.0) -> torch.Tensor:
+    """Gradient matrix of the GLOBAL objective: columns (1/m) grad L_nj(w_j).
+
+    W: (p, m); Xs: (m, n, p); ys: (m, n)  ->  (p, m)
+    """
+    m = W.shape[1]
+    per_task = torch.func.vmap(lambda w, X, y: task_grad(loss, w, X, y, l2),
+                               in_dims=(1, 0, 0), out_dims=1)
+    return per_task(W, Xs, ys) / m
+
+
+def global_loss(loss: Loss, W: torch.Tensor, Xs: torch.Tensor,
+                ys: torch.Tensor, l2: float = 0.0) -> torch.Tensor:
+    per_task = torch.func.vmap(lambda w, X, y: task_loss(loss, w, X, y, l2),
+                               in_dims=(1, 0, 0))
+    return torch.mean(per_task(W, Xs, ys))

@@ -1,0 +1,225 @@
+"""Per-loss dispatch for the worker hot path (the full-batch half).
+
+Port of ``repro.core.worker_ops``.  Every round of every gradient-based
+solver has each worker evaluate per-task quantities of its local data —
+the gradient column ``(1/n) X_j^T l'(X_j w_j)`` above all.  This module
+picks the implementation per loss and per device; the three names map
+onto the reference's:
+
+* ``gram``   (reference ``gram``) — squared loss with cached per-task
+             Gram statistics ``A_j = X_j^T X_j / n``, ``b_j = X_j^T y_j / n``
+             (computed once by :meth:`MTLProblem.make`): the gradient is
+             ``A_j w_j - b_j``, a batched matmul.  The reference wrote no
+             kernel for it, and neither does the port.
+* ``kernel`` (reference ``pallas``) — the raw path (logistic, or squared
+             without the cache) through
+             :func:`repro_torch.kernels.mtl_grad.task_gradients`: the
+             hand-written CUDA kernel for a tensor on the card, its plain
+             version for a tensor on the CPU.
+* ``torch``  (reference ``xla``) — a ``torch.func.vmap`` of
+             :mod:`repro_torch.core.linear_model` over the tasks: what a
+             CPU tensor gets by default, as the reference's CPU gets
+             ``xla``, and the oracle the other two are tested against.
+
+Where the reference asks ``jax.default_backend() == "tpu"``, the port
+asks whether the designs lie on a CUDA device.  ``impl=`` still forces
+one path.
+
+Every function takes the worker-local ``data`` dict the runtime binds
+into the round body (``Xs``/``ys`` plus ``gram_A``/``gram_b`` when
+cached) and accepts the runtime as ``rt=``.  Only one data shard exists
+in the port so far, so every data-axis reduction of the reference
+(``_pmean``) is the identity and ``rt`` is not read.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..kernels.mtl_grad import task_gradients
+from . import linear_model as lm
+from .losses import Loss
+
+IMPLS = ("gram", "kernel", "torch")
+
+
+def gram_stats(Xs: torch.Tensor, ys: torch.Tensor, data_shards: int = 1
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-task sufficient statistics for the squared loss.
+
+    Xs: (m, n, p); ys: (m, n)  ->  A (m, p, p), b (m, p) with
+    A_j = X_j^T X_j / n and b_j = X_j^T y_j / n, on the designs' device.
+    """
+    if data_shards != 1:
+        raise NotImplementedError(
+            "data_shards > 1 comes with the mesh runtime (ROADMAP Queue 1 "
+            "item 5)")
+    n = Xs.shape[1]
+    A = torch.einsum("jni,jnk->jik", Xs, Xs) / n
+    b = torch.einsum("jni,jn->ji", Xs, ys) / n
+    return A, b
+
+
+def has_gram(data: Dict[str, torch.Tensor]) -> bool:
+    return "gram_A" in data
+
+
+def _per_task(fn, in_dims, out_dims=1):
+    return torch.func.vmap(fn, in_dims=in_dims, out_dims=out_dims)
+
+
+def _grad_hess(loss: Loss, W_cols: torch.Tensor, Xs: torch.Tensor,
+               ys: torch.Tensor, l2: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked per-task gradient (d, L) and Hessian (L, d, d)."""
+    g = _per_task(lambda w, X, y: lm.task_grad(loss, w, X, y, l2),
+                  (1, 0, 0))(W_cols, Xs, ys)
+    H = _per_task(lambda w, X, y: lm.task_hessian(loss, w, X, y, l2),
+                  (1, 0, 0), 0)(W_cols, Xs, ys)
+    return g, H
+
+
+def _resolve_impl(loss: Loss, data: Dict[str, torch.Tensor],
+                  impl: Optional[str]) -> str:
+    if impl is not None:
+        return impl
+    if loss.name == "squared" and has_gram(data):
+        return "gram"
+    if data["Xs"].device.type == "cuda" and loss.name in ("squared",
+                                                          "logistic"):
+        return "kernel"
+    return "torch"
+
+
+def grad_columns(loss: Loss, W_cols: torch.Tensor,
+                 data: Dict[str, torch.Tensor], l2: float = 0.0,
+                 impl: Optional[str] = None, rt=None) -> torch.Tensor:
+    """Per-task gradient columns ``grad L_nj(w_j)``: (p, L) from (p, L).
+
+    Callers apply the global objective's 1/m factor themselves.  ``impl``
+    forces an implementation ("gram" | "kernel" | "torch"); by default
+    the cheapest correct one for the loss and the device is picked.
+    """
+    impl = _resolve_impl(loss, data, impl)
+    if impl == "gram":
+        G = torch.einsum("jik,kj->ij", data["gram_A"], W_cols) \
+            - data["gram_b"].T
+    elif impl == "kernel":
+        G = task_gradients(data["Xs"], data["ys"], W_cols.T.contiguous(),
+                           loss=loss.name).T.to(W_cols.dtype)
+    elif impl == "torch":
+        G = _per_task(lambda w, X, y: lm.task_grad(loss, w, X, y),
+                      (1, 0, 0))(W_cols, data["Xs"], data["ys"])
+    else:
+        raise ValueError(f"unknown gradient impl {impl!r}; have {IMPLS}")
+    if l2:
+        G = G + l2 * W_cols
+    return G
+
+
+def newton_columns(loss: Loss, W_cols: torch.Tensor,
+                   data: Dict[str, torch.Tensor], l2: float = 0.0,
+                   damping: float = 1e-6, rt=None) -> torch.Tensor:
+    """DNSP worker messages ``(hess L_nj)^-1 grad L_nj``: (p, L).
+
+    Squared loss with Gram cache: the Hessian IS ``A_j`` — one (p, p)
+    solve per task, no pass over the raw data.
+    """
+    if loss.name == "squared" and has_gram(data):
+        p = W_cols.shape[0]
+        eye = torch.eye(p, dtype=W_cols.dtype, device=W_cols.device)
+
+        def one(A, b, w):
+            g = A @ w - b + l2 * w
+            return torch.linalg.solve(A + (l2 + damping) * eye, g)
+
+        return _per_task(one, (0, 0, 1))(data["gram_A"], data["gram_b"],
+                                         W_cols)
+    return _per_task(
+        lambda w, X, y: lm.newton_direction(loss, w, X, y, l2, damping),
+        (1, 0, 0))(W_cols, data["Xs"], data["ys"])
+
+
+def ridge_columns(data: Dict[str, torch.Tensor], l2: float) -> torch.Tensor:
+    """Per-task ridge solutions (p, L) from the Gram cache (squared loss)."""
+    A, b = data["gram_A"], data["gram_b"]
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return _per_task(lambda Aj, bj: torch.linalg.solve(Aj + l2 * eye, bj),
+                     (0, 0))(A, b)
+
+
+def erm_columns(loss: Loss, data: Dict[str, torch.Tensor], l2: float,
+                rt=None, iters: int = 25) -> torch.Tensor:
+    """Per-task unconstrained ERM solutions (p, L) — the Local baseline's
+    worker computation: one ridge solve per task from the Gram cache
+    when present, else ``linear_model.erm`` per task (closed form for
+    the squared loss, damped Newton otherwise)."""
+    if loss.name == "squared" and has_gram(data):
+        return ridge_columns(data, l2)
+    return _per_task(lambda X, y: lm.erm(loss, X, y, l2, iters),
+                     (0, 0))(data["Xs"], data["ys"])
+
+
+def prox_columns(loss: Loss, data: Dict[str, torch.Tensor],
+                 Z_cols: torch.Tensor, Q_cols: torch.Tensor,
+                 W0_cols: torch.Tensor, rho: float, m: int, l2: float = 0.0,
+                 iters: int = 8, rt=None) -> torch.Tensor:
+    """The ADMM worker step (Appendix A.1), per task:
+
+        w_j+ = argmin_w  L_nj(w)/m + <w - z_j, q_j> + rho/2 ||w - z_j||^2
+
+    Z_cols/Q_cols/W0_cols: (p, L) -> (p, L).  Squared loss: closed form
+    (from the Gram cache when present, else from the raw moments).
+    Smooth non-quadratic losses: ``iters`` damped Newton steps on the
+    strongly convex subproblem.
+    """
+    p = Z_cols.shape[0]
+    eye = torch.eye(p, dtype=Z_cols.dtype, device=Z_cols.device)
+    if loss.name == "squared":
+        if has_gram(data):
+            A, b = data["gram_A"], data["gram_b"]
+        else:
+            A, b = gram_stats(data["Xs"], data["ys"])
+
+        def one(Aj, bj, z, q):
+            Amat = Aj / m + (rho + l2 / m) * eye
+            return torch.linalg.solve(Amat, bj / m + rho * z - q)
+
+        return _per_task(one, (0, 0, 1, 1))(A, b, Z_cols, Q_cols)
+
+    Xs, ys = data["Xs"], data["ys"]
+    W = W0_cols
+    for _ in range(iters):
+        g, H = _grad_hess(loss, W, Xs, ys, l2)
+        g = g / m + Q_cols + rho * (W - Z_cols)
+        step = _per_task(lambda Hj, gj: torch.linalg.solve(Hj / m + rho * eye,
+                                                           gj),
+                         (0, 1))(H, g)
+        W = W - step
+    return W
+
+
+def projected_solves(loss: Loss, U: torch.Tensor,
+                     data: Dict[str, torch.Tensor], l2: float = 0.0,
+                     iters: int = 25, rt=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DGSP/DNSP re-fit ``v_j = argmin_v L_nj(U v)``.
+
+    Returns (W_cols (p, L), V (k, L)) with ``W = U V``.  Squared loss
+    with Gram cache: the projected normal equations
+    ``U^T A_j U v = U^T b_j`` — cost k^2 p per task instead of n p k.
+    """
+    if loss.name == "squared" and has_gram(data):
+        k = U.shape[1]
+        eye = torch.eye(k, dtype=U.dtype, device=U.device)
+
+        def one(A, b):
+            Ak = U.T @ (A @ U) + max(l2, 1e-9) * eye
+            return torch.linalg.solve(Ak, U.T @ b)
+
+        V = _per_task(one, (0, 0))(data["gram_A"], data["gram_b"])
+        return U @ V, V
+
+    return _per_task(lambda X, y: lm.projected_erm(loss, U, X, y, l2, iters),
+                     (0, 0), (1, 1))(data["Xs"], data["ys"])

@@ -1,22 +1,31 @@
-"""Carry the JAX package's weights across to the port.
+"""Carry the JAX package's state across to the port as numpy arrays.
 
 Models that were saved cross over through the shared store format
 (``FactoredModel.load`` reads the reference's stores).  A model held in
 memory by the reference crosses as numpy factors: hand
 ``np.asarray(model.U)``, ``np.asarray(model.s)`` and ``np.asarray(model.V)``
 to :func:`factored_from_numpy`.  The bytes are kept as they are, so the
-port's model has the reference model's ``version``.  This module imports
-neither JAX nor the reference: the caller does the ``np.asarray``.
+port's model has the reference model's ``version``.  A problem crosses
+with :func:`problem_from_numpy` (its Gram cache too, when the reference
+built one), and a spectral engine's warm carry with
+:func:`sv_carry_from_numpy`.  This module imports neither JAX nor the
+reference: the caller does the ``np.asarray``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
+from .core.methods.base import MTLProblem
+from .core.losses import get_loss
 from .serve.mtl import FactoredModel
+
+
+def _move(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C")).to(dev)   # own copy
 
 
 def factored_from_numpy(U: np.ndarray, s: np.ndarray, V: np.ndarray,
@@ -28,10 +37,48 @@ def factored_from_numpy(U: np.ndarray, s: np.ndarray, V: np.ndarray,
     kept, with the same content-hash ``version`` as the model they came
     from."""
     dev = resolve_device(device)
-
-    def move(a):
-        return torch.from_numpy(np.array(a, order="C")).to(dev)  # own copy
-
-    return FactoredModel(U=move(U), s=move(s), V=move(V), loss=loss,
+    return FactoredModel(U=_move(U, dev), s=_move(s, dev), V=_move(V, dev),
+                         loss=loss,
                          task_keys=None if task_keys is None
                          else tuple(task_keys))
+
+
+def problem_from_numpy(Xs: np.ndarray, ys: np.ndarray, loss: str = "squared",
+                       gram: bool = True, A: float = 1.0, r: int = 5,
+                       l2: float = 0.0, device: DeviceLike = None,
+                       gram_A: Optional[np.ndarray] = None,
+                       gram_b: Optional[np.ndarray] = None) -> MTLProblem:
+    """A port :class:`MTLProblem` on ``device`` (default: the card) from
+    numpy designs ``Xs (m, n, p)`` and labels ``ys (m, n)``.
+
+    When the reference's Gram cache is passed (``gram_A (m, p, p)``,
+    ``gram_b (m, p)``) it is kept byte for byte, so both packages start
+    from the same cache; otherwise ``gram=True`` builds one on the device
+    for the squared loss, as :meth:`MTLProblem.make` does.
+    """
+    if (gram_A is None) != (gram_b is None):
+        raise ValueError("pass both gram_A and gram_b, or neither")
+    dev = resolve_device(device)
+    if gram_A is None:
+        return MTLProblem.make(_move(Xs, dev), _move(ys, dev), loss,
+                               gram=gram, device=dev, A=A, r=r, l2=l2)
+    if not gram or loss != "squared":
+        raise ValueError("a Gram cache belongs to a squared-loss problem "
+                         "built with gram=True")
+    return MTLProblem(Xs=_move(Xs, dev), ys=_move(ys, dev),
+                      loss=get_loss(loss), A=A, r=r, l2=l2,
+                      gram_A=_move(gram_A, dev), gram_b=_move(gram_b, dev))
+
+
+def sv_carry_from_numpy(carry: Dict[str, np.ndarray],
+                        device: DeviceLike = None) -> Dict[str, object]:
+    """A ``ShrinkEngine`` warm carry on ``device`` (default: the card)
+    from the reference's carry as numpy arrays: ``V``, ``s`` and ``T``
+    become tensors, the ``warm`` flag and the ``exact_rounds`` counter
+    host ints (the port's carry keeps those two on the host)."""
+    dev = resolve_device(device)
+    if not carry:
+        return {}
+    return {"V": _move(carry["V"], dev), "s": _move(carry["s"], dev),
+            "T": _move(carry["T"], dev), "warm": int(carry["warm"]),
+            "exact_rounds": int(carry["exact_rounds"])}

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src_torch/`` and not
-``chip_smoke.py`` imports JAX or the reference package, and importing
-the serving path leaves JAX unloaded."""
+``chip_smoke.py`` imports JAX or the reference package, importing the
+serving and solver paths leaves JAX unloaded, and the entry points
+default to the card."""
 import ast
 import pathlib
 import subprocess
@@ -41,7 +42,11 @@ def test_importing_the_serving_path_leaves_jax_unloaded():
         "import sys\n"
         f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
         "import repro_torch.serve.mtl, repro_torch.kernels.mtl_score.ops\n"
-        "import repro_torch.interop\n"
+        "import repro_torch.interop, repro_torch.api\n"
+        "import repro_torch.core.methods.convex, repro_torch.core.methods.greedy\n"
+        "import repro_torch.core.methods.baselines, repro_torch.runtime.sim\n"
+        "import repro_torch.kernels.mtl_grad.ops\n"
+        "from repro_torch import solve\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -50,3 +55,22 @@ def test_importing_the_serving_path_leaves_jax_unloaded():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_entry_points_default_to_the_card():
+    """``device=None`` means CUDA; on a host without a card the problem
+    constructor and the front door raise instead of using the CPU."""
+    import numpy as np
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default is legitimate here")
+    sys.path.insert(0, str(ROOT / "src_torch"))
+    import repro_torch
+    from repro_torch.core.methods import MTLProblem
+    X = np.zeros((2, 4, 3), np.float32)
+    y = np.zeros((2, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MTLProblem.make(X, y)
+    prob = MTLProblem.make(X, y, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.solve(prob, method="local")
