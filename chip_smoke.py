@@ -35,10 +35,19 @@ raises and the script exits non-zero:
    for 50, on the card and through the port on the CPU, same data;
 8. solver path C, the paper's Fig-1 claims at its base spec (p=100,
    m=30, r=5, n=50) with the ten methods of
-   ``benchmarks/fig1_regression.py``.
+   ``benchmarks/fig1_regression.py``;
+9. solver path D, stochastic rounds at the reference's large-n spec
+   (``solver_bench.py`` FULL2D: p=200, m=32, n=20000, r=5, one data
+   shard): the §5 data drawn on the card by the port's threefry
+   generator, the five stochastic solvers (mini-batches of 500 rows,
+   local steps through the ``prox_step`` kernel) and AltMin on the
+   logistic copy, each held to its full-batch ledger, to the bitwise
+   ``B=n, L=1`` anchor, to the port's CPU solve on the same draws
+   and (squared loss, and AltMin) to ``W=0``'s excess risk.
 
-Phases 4 and 6-8 each set the launch counters to 0 just before they run
-and read them just after.  It prints a ``{"kernels": [...]}`` line and,
+Phase 3 also checks the seeded sampler on the card against the CPU,
+bit for bit, and times a draw.  Phases 4 and 6-9 each set the launch
+counters to 0 just before they run and read them just after.  It prints a ``{"kernels": [...]}`` line and,
 last, the contract line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
@@ -90,6 +99,48 @@ SPECTRAL_W_TOL = 1e-5
 FULL = dict(p=200, m=32, n=2000, r=5)
 FULL_METHODS = (("dgsp", {"rounds": 10}), ("proxgd", {"rounds": 50, "lam": 0.02}))
 SOLVER_W_RTOL = 1e-4
+# prox_step vs plain: the same f32 products and step, the sums in
+# another order, ~1e-7 of the scale
+PROX_RTOL = 1e-5
+# solver path D: the reference's large-n spec (solver_bench.py:55), its
+# data key and chunking (solver_bench.py:139-142), on one data shard
+FULL2D = dict(p=200, m=32, n=20000, r=5, chunks=10, key=3)
+D_BATCH = 500
+D_SOLVES = (            # method, loss, hyper-parameters, local steps
+    ("proxgd", "squared", {"rounds": 10, "lam": 0.01}, 4),
+    ("accproxgd", "squared", {"rounds": 10, "lam": 0.01}, 4),
+    ("admm", "squared", {"rounds": 10, "lam": 0.01}, 4),
+    ("dgsp", "squared", {"rounds": 6}, 2),
+    ("dnsp", "squared", {"rounds": 6}, 2),
+    ("proxgd", "logistic", {"rounds": 10, "lam": 0.01}, 4),
+)
+D_ALTMIN = {"rounds": 10, "u_grad_steps": 20}  # logistic: U-step via mtl_grad
+# the prox_step kernel's two main shapes: path D's local step, and the
+# FULLSP spec (solver_bench.py:66) with 32-row mini-batches
+PROX_MAIN = (("path D squared", 32, D_BATCH, 200, "squared"),
+             ("FULLSP-stochastic", 768, 32, 2048, "squared"))
+# the step's scalars in the check: eta*inv_m = 1 and l2 = 0.1, so the
+# kernel's own terms (the gradient, l2*w, q, rho*(w - z)) are as large as
+# W_new and the tolerance is <= 1e-4 of the step: a dropped term or X read
+# at bf16 precision fails it (tests/test_torch_prox_step.py shows both)
+PROX_DESCENT = dict(eta=2.0, rho=0.0, inv_m=0.5, l2=0.1)
+PROX_ADMM = dict(eta=2.0, rho=0.25, inv_m=0.5, l2=0.1)
+_F32, _BF16 = torch.float32, torch.bfloat16
+# name, L, B, p, loss, X dtype, W scale, ADMM form (random Z, Q)
+PROX_CASES = (
+    ("path D squared", 32, D_BATCH, 200, "squared", _F32, 1.0, False),
+    ("path D logistic", 32, D_BATCH, 200, "logistic", _F32, 1.0, False),
+    ("FULLSP-stochastic", 768, 32, 2048, "squared", _F32, 1.0, False),
+    ("FULLSP-stochastic bf16 X", 768, 32, 2048, "squared", _BF16, 1.0, False),
+    ("path D ADMM rho Z,Q", 32, D_BATCH, 200, "squared", _F32, 1.0, True),
+    ("path D ADMM logistic", 32, D_BATCH, 200, "logistic", _F32, 1.0, True),
+    ("ragged L=3 B=300 p=37", 3, 300, 37, "squared", _F32, 1.0, True),
+    ("ragged L=5 B=77 p=2047 bf16 log", 5, 77, 2047, "logistic", _BF16, 1.0,
+     True),
+    ("L=1 B=500 p=200", 1, D_BATCH, 200, "squared", _F32, 1.0, False),
+    ("B=1 L=4 p=130 logistic", 4, 1, 130, "logistic", _F32, 1.0, True),
+    ("B=33 p=4101 ADMM", 2, 33, 4101, "squared", _F32, 1.0, True),
+    ("logistic |pred|~1e3", 4, 257, 130, "logistic", _F32, 1e3, True))
 
 REPO = pathlib.Path(__file__).resolve().parent
 
@@ -362,8 +413,7 @@ def build_all(kernels) -> None:
 # ---------------------------------------------------------------------------
 # phase 3, mtl_grad
 # ---------------------------------------------------------------------------
-def grad_inputs(gen, m, n, p, loss, x_dtype, w_scale=1.0):
-    dev = "cuda"
+def grad_inputs(gen, m, n, p, loss, x_dtype, w_scale=1.0, dev="cuda"):
     X = torch.randn(m, n, p, generator=gen, device=dev).to(x_dtype)
     y = torch.randn(m, n, generator=gen, device=dev)
     if loss == "logistic":
@@ -449,7 +499,148 @@ def grad_kernel_phase(gen):
 
 
 # ---------------------------------------------------------------------------
-# phases 6-8, the solver paths
+# phase 3, prox_step and the sampler
+# ---------------------------------------------------------------------------
+def prox_inputs(gen, L, n, p, loss, x_dtype, w_scale=1.0, admm=False,
+                dev="cuda"):
+    """X, y, W as for mtl_grad; Z, Q random for the ADMM form, else the
+    ProxGD form's Z = W, Q = 0."""
+    X, y, W = grad_inputs(gen, L, n, p, loss, x_dtype, w_scale, dev)
+    if admm:
+        Z = torch.randn(L, p, generator=gen, device=dev) / math.sqrt(p)
+        Q = 0.1 * torch.randn(L, p, generator=gen, device=dev)
+    else:
+        Z, Q = W, torch.zeros_like(W)
+    return X, y, W, Z, Q
+
+
+def prox_error(out, ref, W):
+    """``out`` against the plain version's ``ref``: the largest error,
+    the scale it is held to (max(1, max|W_new|)) and the step's own
+    largest entry max|W - W_new| (how large the kernel's terms are)."""
+    err = float((out - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    step = float((W.float() - ref).abs().max())
+    return err, scale, step
+
+
+def prox_library(X, y, W, Z, Q, eta, rho, inv_m, l2, loss):
+    """The library yardstick: two batched gemms around the loss
+    derivative, then the step (reads X twice, writes the gradient).  The
+    port never calls it."""
+    pred = torch.bmm(X, W.unsqueeze(2)).squeeze(2)
+    r = pred - y if loss == "squared" else -y * torch.sigmoid(-y * pred)
+    g = torch.bmm(r.unsqueeze(1), X).squeeze(1) / X.shape[1] + l2 * W
+    return W - eta * (g * inv_m + Q + rho * (W - Z))
+
+
+def prox_bound_ms(L, n, p, x_bytes):
+    """Least time for one ``prox_step`` call: X, y, W, Z, Q read once,
+    the stepped W written once, against a dot and an axpy per element of
+    X plus the step."""
+    return bound_ms(L * n * p * x_bytes + 4 * L * n + 4 * L * p * 4,
+                    4 * L * n * p + 8 * L * p)
+
+
+def prox_kernel_phase(gen):
+    """prox_step against its plain version at path D's and FULLSP-
+    stochastic's shapes and at edge shapes (each launched twice: the
+    bytes must not move), then its times at the two main shapes."""
+    from repro_torch.kernels.prox_step import ops as prox_ops
+    from repro_torch.kernels.prox_step.ref import prox_step_ref
+    f32 = torch.float32
+    D = PROX_DESCENT
+    max_abs_err = 0.0
+    for name, L, n, p, loss, xdt, ws, admm in PROX_CASES:
+        X, y, W, Z, Q = prox_inputs(gen, L, n, p, loss, xdt, ws, admm)
+        args = PROX_ADMM if admm else D
+        out = prox_ops.prox_step(X, y, W, Z, Q, loss=loss, **args)
+        out2 = prox_ops.prox_step(X, y, W, Z, Q, loss=loss, **args)
+        ref = prox_step_ref(X, y, W, Z, Q, loss=loss, **args)
+        torch.cuda.synchronize()
+        check(out.shape == (L, p) and out.dtype == f32 and
+              bool(torch.isfinite(out).all()), f"{name}: bad output")
+        check(torch.equal(out, out2), f"{name}: two launches gave different "
+              f"bytes")
+        err, scale, step = prox_error(out, ref, W)
+        log(f"[kernel] prox_step {name:32s} max|err| {err:.3e} / "
+            f"max(1, max|W_new|) {scale:.3e} (tol {PROX_RTOL:g} x that = "
+            f"{PROX_RTOL * scale / step:.1e} of max|W - W_new| {step:.3e}); "
+            f"relaunch bitwise equal")
+        check(err <= PROX_RTOL * scale, f"{name}: kernel disagrees with the "
+              f"plain version: {err} > {PROX_RTOL} * {scale}")
+        if name in ("path D squared", "path D logistic", "FULLSP-stochastic"):
+            max_abs_err = max(max_abs_err, err)
+        del X, y, W, Z, Q, out, out2, ref
+    rows = []
+    for name, L, n, p, loss in PROX_MAIN:
+        X, y, W, Z, Q = prox_inputs(gen, L, n, p, loss, f32)
+
+        def kern():
+            return prox_ops.prox_step(X, y, W, Z, Q, loss=loss, **D)
+
+        k_ms = time_ms(kern, reps=20, inner=10)
+        g_ms = graph_ms(kern, reps=20, inner=10)
+        p_ms = time_ms(lambda: prox_step_ref(X, y, W, Z, Q, loss=loss, **D),
+                       reps=20, inner=10)
+        lib_ms = time_ms(lambda: prox_library(X, y, W, Z, Q, loss=loss, **D),
+                         reps=20, inner=10)
+        lib_g_ms = graph_ms(lambda: prox_library(X, y, W, Z, Q, loss=loss,
+                                                 **D), reps=20, inner=10)
+        b_ms, b_by = prox_bound_ms(L, n, p, 4)
+        rows.append({"shape": {"L": L, "B": n, "p": p, "loss": loss,
+                               "x_dtype": "f32"},
+                     "kernel_ms": k_ms, "kernel_graph_ms": g_ms,
+                     "plain_ms": p_ms, "library_ms": lib_ms,
+                     "library_graph_ms": lib_g_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[time] prox_step {name:17s} kernel {k_ms * 1e3:9.2f} us (graph "
+            f"{g_ms * 1e3:9.2f} us)  plain {p_ms * 1e3:9.2f} us  library "
+            f"{lib_ms * 1e3:9.2f} us (graph {lib_g_ms * 1e3:9.2f} us)  bound "
+            f"{b_ms * 1e3:8.3f} us ({b_by}); "
+            f"{L * n * p * 4 / (g_ms * 1e-3) / 1e12:.2f} TB/s of X")
+        del X, y, W, Z, Q
+    torch.cuda.synchronize()
+    return rows, max_abs_err
+
+
+def sampler_phase():
+    """``batch_indices`` on the card against the CPU, bit for bit, at path
+    D's draws (rounds {0, 7} x local steps {0, 3}), and the host time of
+    one draw on the card at path D's and FULLSP-stochastic's shapes."""
+    from repro_torch.core.worker_ops import batch_indices
+    m, n = FULL2D["m"], FULL2D["n"]
+    ids = torch.arange(m, dtype=torch.int32)
+    for k in (0, 7):
+        for step in (0, 3):
+            card = batch_indices(0, ids.cuda(), k, step, D_BATCH, n)
+            host = batch_indices(0, ids, k, step, D_BATCH, n)
+            check(card.device.type == "cuda" and
+                  torch.equal(card.cpu(), host),
+                  f"sampler: card and CPU rows differ at round {k}, step {step}")
+    out = {}
+    for label, tasks, B, n_rows in (("path D", m, D_BATCH, n),
+                                    ("FULLSP-stochastic", 768, 32, 64)):
+        tid = torch.arange(tasks, dtype=torch.int32, device="cuda")
+        for i in range(3):
+            batch_indices(0, tid, i, 0, B, n_rows)
+        torch.cuda.synchronize()
+        reps = 30
+        t0 = time.perf_counter()
+        for i in range(reps):
+            batch_indices(0, tid, i, 1, B, n_rows)
+        torch.cuda.synchronize()
+        out[label] = {"tasks": tasks, "B": B,
+                      "draw_ms": (time.perf_counter() - t0) / reps * 1e3}
+    log(f"[sampler] card == CPU bitwise at path D's draws (rounds 0, 7 x steps "
+        f"0, 3; m={m}, B={D_BATCH}, n={n}); one draw on the card: "
+        + ", ".join(f"{k} (m={v['tasks']}, B={v['B']}) {v['draw_ms']:.3f} ms"
+                    for k, v in out.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 6-9, the solver paths
 # ---------------------------------------------------------------------------
 def timed_solve(solve, prob, **kw):
     t0 = time.perf_counter()
@@ -608,6 +799,168 @@ def path_c(grad_ops):
             "launches": {"mtl_grad": grad_ops.task_gradients.launches}}
 
 
+def path_d(grad_ops, prox_ops):
+    """Stochastic rounds at FULL2D on the card: data from the port's
+    generator, the five stochastic solvers and AltMin, each held to its
+    full-batch twin and to the port on the CPU."""
+    import repro_torch
+    from repro_torch.core import prng
+    from repro_torch.core.linear_model import global_loss
+    from repro_torch.core.methods import MTLProblem
+    from repro_torch.data.synthetic import (SimSpec, excess_risk_classification,
+                                            excess_risk_regression, generate)
+    sp = FULL2D
+    p, m, n, r = sp["p"], sp["m"], sp["n"], sp["r"]
+    t0 = time.perf_counter()
+    data = {}
+    for loss, task in (("squared", "regression"),
+                       ("logistic", "classification")):
+        data[loss] = generate(prng.PRNGKey(sp["key"]),
+                              SimSpec(p=p, m=m, r=r, n=n, task=task),
+                              sample_chunks=sp["chunks"])
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    Xs, ys, Wstar, Sigma = data["squared"]
+    Xc, yc, Wstar_c, _ = data["logistic"]
+    check(Xs.device.type == "cuda" and bool(torch.isfinite(Xs).all()) and
+          set(torch.unique(yc).tolist()) == {-1.0, 1.0}, "path D: bad data")
+    grad_ops.task_gradients.launches = 0       # count this path only
+    prox_ops.prox_step.launches = 0
+    probs = {"squared": MTLProblem.make(Xs, ys, "squared", gram=False, A=2.0,
+                                        r=r),
+             "logistic": MTLProblem.make(Xc, yc, "logistic", A=2.0, r=r)}
+    log(f"[path D] FULL2D p={p} m={m} n={n} r={r}: data (regression and "
+        f"classification, {sp['chunks']} chunks each, PRNGKey({sp['key']})) "
+        f"{t_data:.2f} s on the card, {Xs.numel() * 4 / 1e6:.1f} MB of "
+        f"designs each")
+
+    def risk(loss, W):
+        if loss == "squared":
+            return float(excess_risk_regression(W, Wstar, Sigma))
+        return float(excess_risk_classification(prng.PRNGKey(11), W,
+                                                Wstar_c, Sigma))
+
+    def objective(prob, W, lam):
+        """What ProxGD minimises: the mean task loss + lam * ||W||_*."""
+        return float(global_loss(prob.loss, W, prob.Xs, prob.ys, prob.l2)
+                     + lam * torch.linalg.svdvals(W).sum())
+
+    zero = torch.zeros((p, m), device="cuda")
+    out, solved = {}, []
+    for method, loss, kw, L in D_SOLVES:
+        prob, label = probs[loss], f"{method}/{loss}"
+        R_ = kw["rounds"]
+        sgd = dict(batch_size=D_BATCH, local_steps=L, batch_seed=0)
+        full = repro_torch.solve(prob, method=method, **kw)
+        if not solved:
+            # B=n, L=1 folds to the full-batch program (stochastic_config);
+            # once on the card, for the first solve
+            degen = repro_torch.solve(prob, method=method, batch_size=n,
+                                      local_steps=1, **kw)
+            check(torch.equal(full.W, degen.W) and
+                  full.comm.ledger() == degen.comm.ledger(),
+                  f"path D {label}: B=n, L=1 is not the full-batch solve")
+        n0 = prox_ops.prox_step.launches
+        res, secs = timed_solve(repro_torch.solve, prob, method=method,
+                                **sgd, **kw)
+        launched = prox_ops.prox_step.launches - n0
+        want = R_ * L if method in ("proxgd", "accproxgd", "admm") else 0
+        check(launched == want, f"path D {label}: {launched} prox_step "
+              f"launches, want {want}")
+        check([e[:4] for e in res.comm.ledger()] ==
+              [e[:4] for e in full.comm.ledger()] and
+              res.extras["local_steps"] == L,
+              f"path D {label}: ledger differs from the full-batch ledger")
+        check(bool(torch.isfinite(res.W).all()), f"path D {label}: bad W")
+        e_sgd, e_full, e_zero = (risk(loss, W) for W in (res.W, full.W, zero))
+        if loss == "squared":
+            check(e_sgd < e_zero, f"path D {label}: excess risk {e_sgd} is "
+                  f"not below W=0's {e_zero}")
+            progress = ""
+        else:
+            # constant-step stochastic logistic ProxGD ends above W=0's
+            # risk, the reference's too (tests/test_torch_stochastic.py::
+            # test_logistic_stochastic_proxgd_ends_above_zero_risk); it is
+            # held to lowering its own objective from its start instead
+            f0, f1 = (objective(prob, W, kw["lam"])
+                      for W in (res.iterates[0], res.W))
+            check(f1 < f0, f"path D {label}: objective {f1} is not below "
+                  f"its start's {f0}")
+            progress = f"; objective {f0:.4f} -> {f1:.4f}"
+        half = R_ // 2
+        _, secs_half = timed_solve(repro_torch.solve, prob, method=method,
+                                   **sgd, **dict(kw, rounds=half))
+        per_round = (secs - secs_half) / (R_ - half)
+        out[label] = {"rounds": R_, "batch_size": D_BATCH, "local_steps": L,
+                      "solve_s": secs, "half_s": secs_half,
+                      "round_s": per_round, "rounds_per_s": 1.0 / per_round,
+                      "prox_step_launches": launched,
+                      "excess_risk": {"stochastic": e_sgd,
+                                      "full_batch": e_full, "zero": e_zero}}
+        log(f"[path D] {label:17s} B={D_BATCH} L={L} {R_} rounds {secs:.3f} s "
+            f"({per_round * 1e3:.2f} ms per round, {1 / per_round:.1f} "
+            f"rounds/s); {launched} prox_step launches; ledger = full batch"
+            f"{'; B=n,L=1 bitwise full batch' if not solved else ''}; "
+            f"excess risk {e_sgd:.4f} (full batch {e_full:.4f}, W=0 "
+            f"{e_zero:.4f}){progress}")
+        solved.append((label, method, loss, res, kw, L))
+
+    # AltMin on the logistic copy: its U-step goes through mtl_grad
+    g0 = grad_ops.task_gradients.launches
+    alt, secs = timed_solve(repro_torch.solve, probs["logistic"],
+                            method="altmin", **D_ALTMIN)
+    launched = grad_ops.task_gradients.launches - g0
+    e_alt, e_zero = risk("logistic", alt.W), risk("logistic", zero)
+    want = D_ALTMIN["rounds"] * D_ALTMIN["u_grad_steps"]
+    check(launched == want and e_alt < e_zero and
+          bool(torch.isfinite(alt.W).all()),
+          f"path D altmin: {launched} mtl_grad launches, excess risk {e_alt} "
+          f"vs W=0's {e_zero}")
+    out["altmin/logistic"] = {"rounds": D_ALTMIN["rounds"], "solve_s": secs,
+                              "mtl_grad_launches": launched,
+                              "excess_risk": {"altmin": e_alt, "zero": e_zero}}
+    log(f"[path D] altmin/logistic {D_ALTMIN['rounds']} rounds {secs:.3f} s; "
+        f"{launched} mtl_grad launches; excess risk {e_alt:.4f} (W=0 "
+        f"{e_zero:.4f})")
+    out["launches"] = {"prox_step": prox_ops.prox_step.launches,
+                       "mtl_grad": grad_ops.task_gradients.launches}
+    check(out["launches"]["prox_step"] > 0 and out["launches"]["mtl_grad"] > 0,
+          "path D never launched prox_step or mtl_grad")
+
+    kernels, window_us = profile_kernels(lambda: repro_torch.solve(
+        probs["squared"], method="proxgd", batch_size=D_BATCH, local_steps=4,
+        batch_seed=0, rounds=10, lam=0.01))
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
+    out["profile"] = {"window_us": window_us, "kernel_us_top": top,
+                      "device_busy_us": sum(kernels.values()),
+                      "device_busy_share": sum(kernels.values()) / window_us
+                      if kernels else None}
+    log("[path D] profiled one stochastic proxgd solve (10 rounds x 4 local "
+        "steps): " + describe_profile(kernels, window_us, top=8))
+    # the same stochastic solves through the port on the CPU: the draws
+    # are integer-identical, so only the f32 sum order differs
+    hosts = {loss: MTLProblem.make(prob.Xs.cpu(), prob.ys.cpu(), loss,
+                                   gram=False, A=2.0, r=r, device="cpu")
+             for loss, prob in probs.items()}
+    out["cpu_check"] = {}
+    for label, method, loss, res, kw, L in solved:
+        t0 = time.perf_counter()
+        cpu = repro_torch.solve(hosts[loss], method=method,
+                                batch_size=D_BATCH, local_steps=L,
+                                batch_seed=0, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t0
+        err = float((res.W.cpu() - cpu.W).abs().max())
+        tol = SOLVER_W_RTOL * max(1.0, float(cpu.W.abs().max()))
+        check(err <= tol and res.comm.ledger() == cpu.comm.ledger(),
+              f"path D {label}: card W differs from the CPU's by {err} > {tol}")
+        out["cpu_check"][label] = {"max_abs_err": err, "tol": tol,
+                                   "cpu_s": t_cpu}
+        log(f"[path D] {label} card vs CPU: max|dW| {err:.3e} (tol "
+            f"{tol:.3e}); ledgers equal; CPU {t_cpu:.2f} s")
+    out["t_data_s"] = t_data
+    return out
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -622,6 +975,8 @@ def main() -> int:
     from repro_torch.kernels.mtl_score.ref import (dequantize_codes,
                                                    mtl_score_ref,
                                                    quantize_codes)
+    from repro_torch.kernels.prox_step import kernel as prox_kernel
+    from repro_torch.kernels.prox_step import ops as prox_ops
     from repro_torch.serve.mtl import FactoredModel, MTLServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -635,7 +990,8 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     # -- 2. build --------------------------------------------------------
-    build_all({"mtl_score": score_kernel, "mtl_grad": grad_kernel})
+    build_all({"mtl_score": score_kernel, "mtl_grad": grad_kernel,
+               "prox_step": prox_kernel})
     torch.cuda.synchronize()
 
     # -- 3. kernel vs plain ------------------------------------------------
@@ -708,6 +1064,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     grad_rows, grad_err = grad_kernel_phase(gen)
+    prox_rows, prox_err = prox_kernel_phase(gen)
+    sampler = sampler_phase()
 
     # -- 4. the serving path at full width --------------------------------
     rng = np.random.default_rng(SEED)
@@ -841,12 +1199,13 @@ def main() -> int:
     finally:
         shutil.rmtree(store, ignore_errors=True)
 
-    # -- 6-8. the solver paths ----------------------------------------------
+    # -- 6-9. the solver paths ----------------------------------------------
     a = path_a(score_ops, grad_ops)
     b = path_b(grad_ops)
     c = path_c(grad_ops)
+    d = path_d(grad_ops, prox_ops)
     grad_launches = (a["launches"]["mtl_grad"] + b["launches"]["mtl_grad"]
-                     + c["launches"]["mtl_grad"])
+                     + c["launches"]["mtl_grad"] + d["launches"]["mtl_grad"])
     check(a["launches"]["mtl_grad"] > 0 and b["launches"]["mtl_grad"] > 0,
           "the solver paths never launched mtl_grad")
 
@@ -880,7 +1239,8 @@ def main() -> int:
         "launches": grad_launches,
         "launches_by_path": {"solver A": a["launches"]["mtl_grad"],
                              "solver B": b["launches"]["mtl_grad"],
-                             "solver C": c["launches"]["mtl_grad"]},
+                             "solver C": c["launches"]["mtl_grad"],
+                             "solver D": d["launches"]["mtl_grad"]},
         "max_abs_err": grad_err,
         "ms": grad_row["kernel_ms"],
         "kernel_ms": grad_row["kernel_ms"],
@@ -891,12 +1251,29 @@ def main() -> int:
         "library_ms": grad_row["library_ms"],
         "shape": grad_row["shape"],
         "by_shape": grad_rows,
+    }, {
+        "name": "prox_step",
+        "route": "cuda",
+        "source": "src_torch/repro_torch/kernels/prox_step/csrc/prox_step.cu",
+        "replaces": "src/repro/kernels/prox_step/kernel.py:69",
+        "launches": d["launches"]["prox_step"],
+        "launches_by_path": {"solver D": d["launches"]["prox_step"]},
+        "max_abs_err": prox_err,
+        "ms": prox_rows[0]["kernel_ms"],
+        "kernel_ms": prox_rows[0]["kernel_ms"],
+        "kernel_graph_ms": prox_rows[0]["kernel_graph_ms"],
+        "plain_ms": prox_rows[0]["plain_ms"],
+        "bound_ms": prox_rows[0]["bound_ms"],
+        "bound_by": prox_rows[0]["bound_by"],
+        "library_ms": prox_rows[0]["library_ms"],
+        "shape": prox_rows[0]["shape"],
+        "by_shape": prox_rows,
     }], "serve": {"requests_per_call": N_REQUESTS, "wave": WAVE,
                   "first_call_s": t_score, "p50_call_s": p50,
                   "max_call_s": worst, "requests_per_s_p50": N_REQUESTS / p50,
                   "profiled_device_busy_share": busy if kernels else None,
                   "profiled_kernel_us": kernels},
-        "solver": {"A": a, "B": b, "C": c}}
+        "solver": {"A": a, "B": b, "C": c, "D": d}, "sampler": sampler}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,13 @@ so each port module has an obvious counterpart to be tested against.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (:func:`repro_torch._device.resolve_device`); there is
-no silent CPU fallback.  Two paths are ported: the factored serving path
-(its scoring kernel, :mod:`repro_torch.kernels.mtl_score`) and the
-full-batch solvers on the simulated cluster behind :func:`solve` (the
-raw-path gradient kernel, :mod:`repro_torch.kernels.mtl_grad`); both
+no silent CPU fallback.  Ported so far: the factored serving path (its
+scoring kernel, :mod:`repro_torch.kernels.mtl_score`), the full-batch
+solvers on the simulated cluster behind :func:`solve` (the raw-path
+gradient kernel, :mod:`repro_torch.kernels.mtl_grad`), and their
+stochastic rounds on the reference's own threefry draws
+(:mod:`repro_torch.core.prng`, :mod:`repro_torch.data.synthetic`; the
+fused local-step kernel, :mod:`repro_torch.kernels.prox_step`).  The
 kernels are written by hand in CUDA C++ for ``sm_90a``.
 """
 from ._device import resolve_device

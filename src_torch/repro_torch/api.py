@@ -33,12 +33,14 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
           metrics: bool = False, device: DeviceLike = None, **hp):
     """Run one registered solver on the simulated cluster.
 
-    The reference's parameters keep their meaning.  What the port cannot
-    run yet raises ``NotImplementedError`` naming the ROADMAP item that
-    brings it: ``backend="mesh"`` and ``data_shards > 1`` (Queue 1 item
-    5), a configuration that stays stochastic once ``batch_size == n``
-    with ``local_steps == 1`` has been folded back to full batch (item
-    4), ``metrics=True`` (item 8), ``verify=`` (item 9) and
+    The reference's parameters keep their meaning.  ``batch_size`` /
+    ``local_steps`` / ``batch_seed`` run the stochastic worker path of a
+    gradient-served solver (``STOCHASTIC_SOLVERS``) on the reference's
+    seeded draws; ``batch_size == n`` with ``local_steps == 1`` is the
+    full-batch solve.  What the port cannot run yet raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it:
+    ``backend="mesh"`` and ``data_shards > 1`` (Queue 1 item 5),
+    ``metrics=True`` (item 8), ``verify=`` (item 9) and
     ``checkpoint_every=`` / ``ckpt_dir=`` (item 6).  ``scan`` is
     accepted and changes nothing: both drivers are one eager loop.
 

@@ -1,3 +1,4 @@
 """The paper's math, ported piece by piece: losses, per-task linear
-models, the communication ledger, the worker ops, the spectral master
-and the solver registry (:mod:`repro_torch.core.methods`)."""
+models, the communication ledger, the worker ops, the spectral master,
+the threefry generator (:mod:`repro_torch.core.prng`) and the solver
+registry (:mod:`repro_torch.core.methods`)."""

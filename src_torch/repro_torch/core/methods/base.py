@@ -19,10 +19,7 @@ from ..._device import DeviceLike, resolve_device
 from ..comm import CommLog
 from ..losses import Loss, get_loss
 
-# what a stochastic configuration, or the device metrics channel, waits for
-STOCHASTIC_TODO = ("stochastic rounds (batch_size < n or local_steps > 1) "
-                   "come with the stochastic worker path, ROADMAP Queue 1 "
-                   "item 4")
+# what the device metrics channel waits for
 METRICS_TODO = ("metrics=True comes with the device round metrics "
                 "(obs/device.py), ROADMAP Queue 1 item 8")
 
@@ -158,14 +155,15 @@ def stochastic_config(prob: MTLProblem, batch_size, local_steps,
     return B, L
 
 
-def full_batch_only(prob: MTLProblem, rt, batch_size, local_steps,
-                    metrics: bool) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet: a
-    configuration that stays stochastic after :func:`stochastic_config`
-    has folded ``B=n, L=1`` back to full batch, or ``metrics=True``."""
-    if stochastic_config(prob, batch_size, local_steps,
-                         rt.data_shards) is not None:
-        raise NotImplementedError(STOCHASTIC_TODO)
+def stamp_sgd(res: MTLResult, sgd) -> None:
+    """Record a stochastic configuration's ``(B, L)`` in ``res.extras``."""
+    if sgd is not None:
+        res.extras.update(batch_size=sgd[0], local_steps=sgd[1])
+
+
+def refuse_metrics(metrics: bool) -> None:
+    """Raise ``NotImplementedError`` for ``metrics=True``, which the port
+    cannot run yet."""
     if metrics:
         raise NotImplementedError(METRICS_TODO)
 

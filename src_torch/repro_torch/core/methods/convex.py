@@ -1,6 +1,6 @@
 """Distributed convex-optimization methods over the nuclear-norm objective.
 
-Port of ``repro.core.methods.convex`` (the full-batch bodies).
+Port of ``repro.core.methods.convex``.
 
 ProxGD   (Algorithm 4): workers send gradient columns; master does
                         singular-value shrinkage.         2p per round.
@@ -18,6 +18,12 @@ gather_columns, the master step runs on the gathered state, and
 broadcast publishes the update.  The shrinkage masters run on the
 spectral engine (``sv_engine="lazy"`` by default), whose basis carry
 rides in the solver state.
+
+ProxGD, AccProxGD and ADMM also take the stochastic worker path
+(``batch_size``/``local_steps``, DESIGN.md §13): each round, ``L``
+communication-free local steps on seeded mini-batches through
+``worker_ops.minibatch_prox_step_columns`` (the ``prox_step`` kernel on
+the card), then the one charged exchange of Table 1.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ import torch
 
 from .. import spectral, worker_ops
 from ..spectral import leading_sv
-from .base import (MTLProblem, MTLResult, default_runtime, full_batch_only,
-                   gram_round_leaves, iterate_recorder, register)
+from .base import (MTLProblem, MTLResult, default_runtime, gram_round_leaves,
+                   iterate_recorder, refuse_metrics, register, stamp_sgd,
+                   stochastic_config, stochastic_round_leaves)
 
 
 def _power_lmax(op, m: int, p: int, like: torch.Tensor) -> torch.Tensor:
@@ -106,6 +113,11 @@ def _grad_columns(rt, prob, Z, data, note):
     return rt.gather_columns(G_local, note)
 
 
+def _round_leaves(prob, sgd):
+    return gram_round_leaves(prob) if sgd is None \
+        else stochastic_round_leaves(prob)
+
+
 def _finish(res, sv, state, keep_sv_carry):
     res.extras.update(sv.stats(state["sv"]))
     if keep_sv_carry:
@@ -122,28 +134,49 @@ def proxgd(prob: MTLProblem, lam: float = 1e-3, rounds: int = 200,
            sv_carry=None, keep_sv_carry: bool = False,
            metrics: bool = False, **_) -> MTLResult:
     rt = default_runtime(prob, runtime)
-    full_batch_only(prob, rt, batch_size, local_steps, metrics)
+    refuse_metrics(metrics)
     if eta is None:
         eta = 1.0 / data_smoothness(prob)
     m = prob.m
     sv = spectral.shrink_engine(prob, sv_engine, rank=sv_rank)
+    sgd = stochastic_config(prob, batch_size, local_steps, rt.data_shards)
 
-    def body(k, state, data):
-        G = _grad_columns(rt, prob, state["W"], data, "gradient column")
-        # master prox step (3.3); grad of (1/m)sum L_nj carries 1/m, the
-        # per-task smoothness is H/m so the per-W step uses eta*m
-        W_new, _, svc = sv.shrink(state["W"] - eta * m * G,
-                                  eta * m * lam, state["sv"])
-        return {"W": rt.broadcast(W_new, "updated predictor"), "sv": svc}
+    if sgd is None:
+        def body(k, state, data):
+            G = _grad_columns(rt, prob, state["W"], data, "gradient column")
+            # master prox step (3.3); grad of (1/m)sum L_nj carries 1/m,
+            # the per-task smoothness is H/m so the per-W step uses eta*m
+            W_new, _, svc = sv.shrink(state["W"] - eta * m * G,
+                                      eta * m * lam, state["sv"])
+            return {"W": rt.broadcast(W_new, "updated predictor"),
+                    "sv": svc}
+    else:
+        B, L = sgd
+
+        def body(k, state, data):
+            # L communication-free local steps on the worker's own task
+            # columns (arXiv 1802.03830); the master shrinks the gathered
+            # locally stepped columns — the one charged exchange
+            Wl = rt.local_slice(state["W"])
+            for i in range(L):
+                Wl = worker_ops.minibatch_prox_step_columns(
+                    prob.loss, Wl, data, prob.l2, rt=rt, seed=batch_seed,
+                    round_k=k, local_step=i, batch_size=B, eta=eta * m,
+                    m=m)
+            W_gath = rt.gather_columns(Wl, "locally stepped columns")
+            W_new, _, svc = sv.shrink(W_gath, eta * m * lam, state["sv"])
+            return {"W": rt.broadcast(W_new, "updated predictor"),
+                    "sv": svc}
 
     state = {"W": _init_W(prob, init, init_W),
              "sv": _sv_carry0(sv, sv_carry)}
     res = MTLResult("proxgd", state["W"], rt.comm,
                     extras={"lam": lam, "eta": eta, "sv_engine": sv.mode})
+    stamp_sgd(res, sgd)
     res.record(0, state["W"])
     state = rt.run_rounds(rounds, body, state, scan=scan,
                           record=iterate_recorder(res, record_every),
-                          data_leaves=gram_round_leaves(prob))
+                          data_leaves=_round_leaves(prob, sgd))
     res.W = state["W"]
     return _finish(res, sv, state, keep_sv_carry)
 
@@ -157,21 +190,42 @@ def accproxgd(prob: MTLProblem, lam: float = 1e-3, rounds: int = 200,
               sv_carry=None, keep_sv_carry: bool = False,
               metrics: bool = False, **_) -> MTLResult:
     rt = default_runtime(prob, runtime)
-    full_batch_only(prob, rt, batch_size, local_steps, metrics)
+    refuse_metrics(metrics)
     if eta is None:
         eta = 1.0 / data_smoothness(prob)
     m = prob.m
     sv = spectral.shrink_engine(prob, sv_engine, rank=sv_rank)
+    sgd = stochastic_config(prob, batch_size, local_steps, rt.data_shards)
 
-    def body(k, state, data):
-        W, Z, t = state["W"], state["Z"], state["t"]
-        G = _grad_columns(rt, prob, Z, data, "gradient at Z")
-        W_new, _, svc = sv.shrink(Z - eta * m * G, eta * m * lam,
+    def master(state, Z_stepped):
+        W, t = state["W"], state["t"]
+        W_new, _, svc = sv.shrink(Z_stepped, eta * m * lam,
                                   state["sv"])                   # (3.4)
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
         Z_new = W_new + ((t - 1.0) / t_new) * (W_new - W)        # (3.5)
         return {"W": W_new, "Z": rt.broadcast(Z_new, "updated Z column"),
                 "t": t_new, "sv": svc}
+
+    if sgd is None:
+        def body(k, state, data):
+            Z = state["Z"]
+            G = _grad_columns(rt, prob, Z, data, "gradient at Z")
+            return master(state, Z - eta * m * G)
+    else:
+        B, L = sgd
+
+        def body(k, state, data):
+            # local steps descend the momentum sequence Z's columns (the
+            # point (3.4) evaluates the gradient at); the master shrinks
+            # the gathered locally stepped columns
+            Zl = rt.local_slice(state["Z"])
+            for i in range(L):
+                Zl = worker_ops.minibatch_prox_step_columns(
+                    prob.loss, Zl, data, prob.l2, rt=rt, seed=batch_seed,
+                    round_k=k, local_step=i, batch_size=B, eta=eta * m,
+                    m=m)
+            Z_stepped = rt.gather_columns(Zl, "locally stepped Z columns")
+            return master(state, Z_stepped)
 
     W0 = _init_W(prob, init, init_W)
     state = {"W": W0, "Z": W0,
@@ -179,10 +233,11 @@ def accproxgd(prob: MTLProblem, lam: float = 1e-3, rounds: int = 200,
              "sv": _sv_carry0(sv, sv_carry)}
     res = MTLResult("accproxgd", state["W"], rt.comm,
                     extras={"lam": lam, "eta": eta, "sv_engine": sv.mode})
+    stamp_sgd(res, sgd)
     res.record(0, state["W"])
     state = rt.run_rounds(rounds, body, state, scan=scan,
                           record=iterate_recorder(res, record_every),
-                          data_leaves=gram_round_leaves(prob))
+                          data_leaves=_round_leaves(prob, sgd))
     res.W = state["W"]
     return _finish(res, sv, state, keep_sv_carry)
 
@@ -198,18 +253,39 @@ def admm(prob: MTLProblem, lam: float = 1e-3, rho: float = 1.0,
     """Appendix A. Worker step (A.1) is a regularized ERM:
         w_j+ = argmin_w L_nj(w)/m + <w - z_j, q_j> + rho/2 ||w - z_j||^2,
     dispatched by ``worker_ops.prox_columns`` (closed form for the
-    squared loss, ``newton_iters`` Newton steps otherwise)."""
+    squared loss, ``newton_iters`` Newton steps otherwise).
+
+    Stochastic path (``batch_size``/``local_steps``): the (A.1) solve
+    becomes ``local_steps`` prox-gradient steps on the same augmented
+    Lagrangian, each on a seeded mini-batch — an inexact-ADMM worker,
+    still 3 charged vectors per round."""
     rt = default_runtime(prob, runtime)
-    full_batch_only(prob, rt, batch_size, local_steps, metrics)
+    refuse_metrics(metrics)
     loss, m, p = prob.loss, prob.m, prob.p
     sv = spectral.shrink_engine(prob, sv_engine, rank=sv_rank)
+    sgd = stochastic_config(prob, batch_size, local_steps, rt.data_shards)
+    if sgd is not None:
+        B, L = sgd
+        # the augmented Lagrangian's per-column smoothness: the data
+        # smoothness of L_nj/m plus the rho-quadratic's curvature
+        eta_w = 1.0 / (data_smoothness(prob) / m + rho)
+
+    def worker(k, W_local, z_loc, q_loc, data):
+        if sgd is None:
+            return worker_ops.prox_columns(loss, data, z_loc, q_loc,
+                                           W_local, rho, m, prob.l2,
+                                           iters=newton_iters, rt=rt)
+        for i in range(L):
+            W_local = worker_ops.minibatch_prox_step_columns(
+                loss, W_local, data, prob.l2, rt=rt, seed=batch_seed,
+                round_k=k, local_step=i, batch_size=B, eta=eta_w, m=m,
+                Z_cols=z_loc, Q_cols=q_loc, rho=rho)
+        return W_local
 
     def body(k, state, data):
         W_local, Z, Q = state["W"], state["Z"], state["Q"]
         z_loc, q_loc = rt.local_slice(Z), rt.local_slice(Q)
-        W_local = worker_ops.prox_columns(loss, data, z_loc, q_loc,
-                                          W_local, rho, m, prob.l2,
-                                          iters=newton_iters, rt=rt)
+        W_local = worker(k, W_local, z_loc, q_loc, data)
         W_full = rt.gather_columns(W_local, "local w")
         Z_new, _, svc = sv.shrink(W_full + Q / rho, lam / rho,
                                   state["sv"])                   # (A.2)
@@ -221,11 +297,12 @@ def admm(prob: MTLProblem, lam: float = 1e-3, rho: float = 1.0,
     state = {"W": W0, "Z": W0, "Q": W0, "sv": _sv_carry0(sv, sv_carry)}
     res = MTLResult("admm", state["W"], rt.comm,
                     extras={"lam": lam, "rho": rho, "sv_engine": sv.mode})
+    stamp_sgd(res, sgd)
     res.record(0, state["W"])
     # the consensus variable Z is the estimator
     state = rt.run_rounds(rounds, body, state, sharded=("W",), scan=scan,
                           record=iterate_recorder(res, record_every, key="Z"),
-                          data_leaves=gram_round_leaves(prob))
+                          data_leaves=_round_leaves(prob, sgd))
     res.W = state["Z"]
     return _finish(res, sv, state, keep_sv_carry)
 
@@ -238,7 +315,7 @@ def dfw(prob: MTLProblem, radius: float = None, rounds: int = 200,
     the leading singular pair of the gradient (:func:`leading_sv`, with
     ``sv_iters`` as its worst-case budget)."""
     rt = default_runtime(prob, runtime)
-    full_batch_only(prob, rt, None, None, metrics)
+    refuse_metrics(metrics)
     if radius is None:
         radius = prob.nuclear_radius
 

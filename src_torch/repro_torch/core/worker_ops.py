@@ -1,4 +1,4 @@
-"""Per-loss dispatch for the worker hot path (the full-batch half).
+"""Per-loss dispatch for the worker hot path.
 
 Port of ``repro.core.worker_ops``.  Every round of every gradient-based
 solver has each worker evaluate per-task quantities of its local data —
@@ -25,6 +25,15 @@ Where the reference asks ``jax.default_backend() == "tpu"``, the port
 asks whether the designs lie on a CUDA device.  ``impl=`` still forces
 one path.
 
+The stochastic half (DESIGN.md §13) draws seeded mini-batches with
+:func:`batch_indices` — the reference's ``jax.random`` fold_in chain,
+reproduced bit for bit by :mod:`repro_torch.core.prng` — and builds the
+mini-batch messages on them.  Its fused local step
+(:func:`minibatch_prox_step_columns`) has two paths: ``kernel``
+(reference ``pallas``), the hand-written ``prox_step`` CUDA kernel on
+the card, and ``torch`` (reference ``xla``), the historical two-step
+expression.
+
 Every function takes the worker-local ``data`` dict the runtime binds
 into the round body (``Xs``/``ys`` plus ``gram_A``/``gram_b`` when
 cached) and accepts the runtime as ``rt=``.  Only one data shard exists
@@ -38,7 +47,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.mtl_grad import task_gradients
+from ..kernels.prox_step import prox_step
 from . import linear_model as lm
+from . import prng
 from .losses import Loss
 
 IMPLS = ("gram", "kernel", "torch")
@@ -116,6 +127,137 @@ def grad_columns(loss: Loss, W_cols: torch.Tensor,
     if l2:
         G = G + l2 * W_cols
     return G
+
+
+# ---------------------------------------------------------------------------
+# stochastic worker path (DESIGN.md §13): a seeded batch sampler + the
+# mini-batch gradient/Newton messages built on it
+# ---------------------------------------------------------------------------
+def batch_indices(seed: int, task_ids: torch.Tensor, round_k: int,
+                  local_step: int, batch_size: int, n_local: int,
+                  shard: int = 0) -> torch.Tensor:
+    """Per-task mini-batch row indices ``(L, batch_size)`` int32 into
+    ``n_local`` local rows, on ``task_ids``' device.
+
+    Each task's key is the reference's fold_in chain over ``(seed,
+    global task id, round, local step, data-shard index)``, so the rows
+    are the reference's rows, draw for draw, on any device.
+    ``batch_size == n_local`` returns ``arange(n_local)`` — the natural
+    row order, so the degenerate mini-batch is the full batch in the
+    same order.  Smaller batches sample WITH replacement.
+    """
+    B, n_local = int(batch_size), int(n_local)
+    L = task_ids.shape[0]
+    dev = task_ids.device
+    if B == n_local:
+        return torch.arange(n_local, dtype=torch.int32,
+                            device=dev).expand(L, n_local)
+    key = prng.fold_in(prng.PRNGKey(seed, device=dev), task_ids)
+    key = prng.fold_in(key, round_k)
+    key = prng.fold_in(key, local_step)
+    key = prng.fold_in(key, shard)
+    return prng.randint(key, (B,), 0, n_local)
+
+
+def _sample_batch(data: Dict[str, torch.Tensor], rt, seed: int,
+                  round_k: int, local_step: int, batch_size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather one seeded mini-batch ``(Xb (L, B, p), yb (L, B))`` from the
+    worker-local rows (one data shard: the shard index is 0)."""
+    Xs, ys = data["Xs"], data["ys"]
+    idx = batch_indices(seed, data["task_ids"], round_k, local_step,
+                        batch_size, Xs.shape[1]).long()
+    rows = torch.arange(Xs.shape[0], device=Xs.device)[:, None]
+    return Xs[rows, idx], ys[rows, idx]
+
+
+def minibatch_grad_columns(loss: Loss, W_cols: torch.Tensor,
+                           data: Dict[str, torch.Tensor], l2: float = 0.0,
+                           rt=None, *, seed: int, round_k: int,
+                           local_step: int, batch_size: int
+                           ) -> torch.Tensor:
+    """Per-task MINI-BATCH gradient columns (p, L): the ``torch`` gradient
+    on a seeded batch of sampled rows (the reference never routes it
+    through a kernel either).  Callers apply the 1/m factor."""
+    Xb, yb = _sample_batch(data, rt, seed, round_k, local_step, batch_size)
+    G = _per_task(lambda w, X, y: lm.task_grad(loss, w, X, y),
+                  (1, 0, 0))(W_cols, Xb, yb)
+    if l2:
+        G = G + l2 * W_cols
+    return G
+
+
+def _resolve_step_impl(loss: Loss, data: Dict[str, torch.Tensor],
+                       impl: Optional[str]) -> str:
+    """The fused prox step has no Gram path (it runs on sampled rows):
+    the kernel for squared/logistic designs on the card, else torch."""
+    if impl is not None:
+        return impl
+    if data["Xs"].device.type == "cuda" and loss.name in ("squared",
+                                                          "logistic"):
+        return "kernel"
+    return "torch"
+
+
+def minibatch_prox_step_columns(loss: Loss, W_cols: torch.Tensor,
+                                data: Dict[str, torch.Tensor],
+                                l2: float = 0.0, rt=None, *, seed: int,
+                                round_k: int, local_step: int,
+                                batch_size: int, eta, m: int, Z_cols=None,
+                                Q_cols=None, rho=0.0,
+                                impl: Optional[str] = None) -> torch.Tensor:
+    """One fused prox-family local step on a seeded mini-batch:
+
+        W <- W - eta (G/m + Q + rho (W - Z)),   G the mini-batch
+                                                 gradient (+ l2 W)
+
+    ``Q_cols=None`` is the plain-descent case (ProxGD/AccProxGD pass
+    ``eta * m`` so the 1/m cancels).
+
+    * ``torch``  — :func:`minibatch_grad_columns` then the step, the
+                   reference's historical expression in its order; with
+                   ``Q_cols=None`` the rho/Z terms are skipped, not
+                   multiplied by zero.
+    * ``kernel`` — :func:`repro_torch.kernels.prox_step.prox_step`:
+                   gradient and step in one launch on the card, the
+                   (L, p) gradient never reaching device memory.  It
+                   gets ``Z=W``, ``Q=0`` and ``inv_m=1/m`` in the
+                   plain-descent case, as the reference's Pallas branch.
+    """
+    impl = _resolve_step_impl(loss, data, impl)
+    if impl == "torch":
+        G = minibatch_grad_columns(loss, W_cols, data, l2, rt=rt, seed=seed,
+                                   round_k=round_k, local_step=local_step,
+                                   batch_size=batch_size)
+        if Q_cols is None:
+            return W_cols - eta * (G / m)
+        return W_cols - eta * (G / m + Q_cols + rho * (W_cols - Z_cols))
+    if impl != "kernel":
+        raise ValueError(f"unknown prox step impl {impl!r}; "
+                         "have 'kernel', 'torch'")
+    Xb, yb = _sample_batch(data, rt, seed, round_k, local_step, batch_size)
+    W = W_cols.T.contiguous()
+    Z = W if Z_cols is None else Z_cols.T.contiguous()
+    Q = torch.zeros_like(W) if Q_cols is None else Q_cols.T.contiguous()
+    W_new = prox_step(Xb, yb, W, Z, Q, eta=eta, rho=rho,
+                      inv_m=1.0 / m, l2=l2, loss=loss.name)
+    return W_new.T.to(W_cols.dtype)
+
+
+def minibatch_newton_columns(loss: Loss, W_cols: torch.Tensor,
+                             data: Dict[str, torch.Tensor], l2: float = 0.0,
+                             damping: float = 1e-6, rt=None, *, seed: int,
+                             round_k: int, local_step: int, batch_size: int
+                             ) -> torch.Tensor:
+    """DNSP's stochastic worker messages: the Newton direction of the
+    MINI-BATCH objective, gradient and Hessian on the same seeded batch."""
+    Xb, yb = _sample_batch(data, rt, seed, round_k, local_step, batch_size)
+    eye = torch.eye(W_cols.shape[0], dtype=W_cols.dtype,
+                    device=W_cols.device)
+    g, H = _grad_hess(loss, W_cols, Xb, yb, l2)
+    return _per_task(lambda Hj, gj: torch.linalg.solve(Hj + damping * eye,
+                                                       gj),
+                     (0, 1))(H, g)
 
 
 def newton_columns(loss: Loss, W_cols: torch.Tensor,

@@ -57,6 +57,35 @@ def test_importing_the_serving_path_leaves_jax_unloaded():
     assert proc.stdout.strip() == "clean"
 
 
+def test_the_stochastic_path_leaves_jax_unloaded():
+    """The slice-3 modules import, and a stochastic solve on data from
+    the port's own generator runs, without JAX or the reference."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
+        "import repro_torch.core.prng, repro_torch.data.synthetic\n"
+        "import repro_torch.kernels.prox_step.ops\n"
+        "from repro_torch import solve\n"
+        "from repro_torch.core import prng\n"
+        "from repro_torch.core.methods import MTLProblem\n"
+        "from repro_torch.data.synthetic import SimSpec, generate\n"
+        "Xs, ys, _, _ = generate(prng.PRNGKey(0, device='cpu'),\n"
+        "                        SimSpec(p=8, m=4, r=2, n=16), device='cpu')\n"
+        "prob = MTLProblem.make(Xs, ys, gram=False, device='cpu')\n"
+        "res = solve(prob, method='admm', rounds=2, batch_size=4,\n"
+        "            local_steps=2, device='cpu')\n"
+        "assert res.extras['local_steps'] == 2\n"
+        "solve(prob, method='altmin', rounds=2, device='cpu')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
 def test_entry_points_default_to_the_card():
     """``device=None`` means CUDA; on a host without a card the problem
     constructor and the front door raise instead of using the CPU."""

@@ -143,11 +143,6 @@ def test_warm_sv_carry_crosses_from_the_reference():
 def test_registry_and_what_is_not_ported():
     assert solver_names() == sorted(repro.core.solver_names())
     _, tp, _ = _problems("gram")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        repro_torch.solve(tp, method="altmin", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        repro_torch.solve(tp, method="proxgd", batch_size=N // 2, rounds=2,
-                          device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         repro_torch.solve(tp, method="proxgd", backend="mesh", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
