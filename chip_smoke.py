@@ -43,11 +43,31 @@ raises and the script exits non-zero:
    local steps through the ``prox_step`` kernel) and AltMin on the
    logistic copy, each held to its full-batch ledger, to the bitwise
    ``B=n, L=1`` anchor, to the port's CPU solve on the same draws
-   and (squared loss, and AltMin) to ``W=0``'s excess risk.
+   and (squared loss, and AltMin) to ``W=0``'s excess risk;
+10. the LM serving path of gemma2-2b at full width: (a) the
+   ``flash_attention`` kernel against its plain version at the served
+   shapes (prefill B=4 S=5120 global and with the 4096 window binding,
+   decode against a ring buffer of wrapped and empty slots), f32 and
+   bf16, softcap on and off, edge shapes (S=130, hd 64/128/256,
+   group 1/2/12), relaunches bitwise, each output row held to its own
+   scale, calls that must fail (the window dropped, the softcap dropped,
+   ``k_pos`` ignored), then its times beside the plain version,
+   FlexAttention, SDPA and the bound; (b) the f32 anchor (gemma2-2b
+   FULL in float32, B=2, a 4608-token prompt, 4 teacher-forced
+   tokens): ``forward`` == ``prefill`` + ``decode_step`` and kernel
+   ``forward`` == plain ``forward``, to 2e-3; (c) the served bf16 wave through
+   ``ServeEngine`` (prompts of 5120, 4096, 1024 and 17 tokens, 32 new
+   each): 832 kernel launches, greedy and seeded-temperature runs
+   repeatable, the logits of prefill and the teacher-forced decode
+   steps within ``SERVE_LOGIT_TOL`` of those through the plain version
+   and its greedy tokens equal, two wrong decode attentions outside that
+   limit, prefill and decode times, and a
+   ``torch.profiler`` window over one wave.
 
 Phase 3 also checks the seeded sampler on the card against the CPU,
-bit for bit, and times a draw.  Phases 4 and 6-9 each set the launch
-counters to 0 just before they run and read them just after.  It prints a ``{"kernels": [...]}`` line and,
+bit for bit, and times a draw.  Phases 4, 6-9 and 10's served wave each
+set the launch counters to 0 just before they run and read them just
+after.  It prints a ``{"kernels": [...]}`` line and,
 last, the contract line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
@@ -55,6 +75,7 @@ prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import pathlib
@@ -65,6 +86,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -962,6 +984,603 @@ def path_d(grad_ops, prox_ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 10, the LM serving path (gemma2-2b FULL) and flash_attention
+# ---------------------------------------------------------------------------
+LM_ARCH = "gemma2-2b"
+BF16_FLOPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
+# kernel vs plain: the reference's own kernel tolerances
+# (tests/test_kernels.py:18-19), times max|out| and times each output
+# row's own scale (``fa_error``)
+FA_TOL = {_F32: 2e-5, _BF16: 3e-2}
+EMPTY_POS = -10 ** 9
+# q is drawn at this std (k and v at 1), so the scores q·k·hd^-1/2 have
+# std 4 and the largest over thousands of keys reach ~15 of gemma2's cap
+# of 50, where the cap moves them by ~0.5: a dropped softcap shows in
+# bf16 as well as in f32
+FA_Q_STD = 4.0
+# name, B, Sq, Sk, H, Hkv, hd, dtype, mode, window, softcap.  "prefill":
+# positions 0..S-1 on both sides (fresh keys); "ring": Sq queries ending
+# at each row's last position against a ring buffer of Sk slots holding
+# wrapped positions (odd rows also empty slots).  The first four are the
+# served wave's shapes (gemma2-2b FULL: 8 heads over 4 KV heads, hd 256,
+# window 4096, softcap 50; B=4 prompts padded to 5120, cache 5152 slots
+# global, 4096 local)
+FA_CASES = (
+    ("prefill global bf16", 4, 5120, 5120, 8, 4, 256, _BF16, "prefill", None, 50.0),
+    ("prefill local bf16", 4, 5120, 5120, 8, 4, 256, _BF16, "prefill", 4096, 50.0),
+    ("decode global bf16", 4, 1, 5152, 8, 4, 256, _BF16, "ring", None, 50.0),
+    ("decode local bf16", 4, 1, 4096, 8, 4, 256, _BF16, "ring", 4096, 50.0),
+    ("prefill global f32", 4, 5120, 5120, 8, 4, 256, _F32, "prefill", None, 50.0),
+    ("prefill local f32 no softcap", 4, 5120, 5120, 8, 4, 256, _F32, "prefill",
+     4096, None),
+    ("decode local f32", 4, 1, 4096, 8, 4, 256, _F32, "ring", 4096, 50.0),
+    ("decode global f32 no softcap", 4, 1, 5152, 8, 4, 256, _F32, "ring", None,
+     None),
+    ("S=130 hd=64 group 2", 1, 130, 130, 8, 4, 64, _F32, "prefill", 100, 50.0),
+    ("S=130 hd=64 group 1", 2, 130, 130, 4, 4, 64, _F32, "prefill", 100, None),
+    ("S=130 hd=128 group 12", 1, 130, 130, 24, 2, 128, _F32, "prefill", 64, 30.0),
+    ("S=130 hd=256 group 2 bf16", 3, 130, 130, 8, 4, 256, _BF16, "prefill", 64,
+     20.0),
+    ("S=300 hd=256 window 64", 2, 300, 300, 8, 4, 256, _F32, "prefill", 64, 50.0),
+    ("ring 256 slots group 12", 3, 1, 256, 24, 2, 128, _F32, "ring", 200, 50.0),
+    ("ring 200 slots hd=64 bf16", 2, 1, 200, 4, 2, 64, _BF16, "ring", 150, 30.0),
+    ("ring 3 queries hd=256", 2, 3, 256, 8, 4, 256, _F32, "ring", 128, None),
+)
+FA_MAIN = FA_CASES[:4]
+# the served wave: 4 prompts (5120 tokens, past the window, down to 17)
+# left-padded to 5120, 32 new tokens each, greedy; cache 5120 + 32
+SERVE_PROMPTS = (5120, 4096, 1024, 17)
+SERVE_NEW = 32
+SERVE_MAX_LEN = 5152
+SERVE_TEMPERATURE = 0.8
+# the served wave's logits (prefill and 31 teacher-forced decode steps,
+# bf16, max|logit| 30) through the kernel against through the plain
+# version: max|diff| limit, about twice the 0.53 read on an H100 80GB
+# HBM3; and the decode attentions that must fail it (changed keyword
+# arguments of the decode calls), which read 18.1 and 4.3 there:
+# positions ignored, as the reference's pallas decode does, and ring
+# slots taken for positions
+SERVE_LOGIT_TOL = 1.0
+SERVE_CONTROLS = {
+    "positions ignored": lambda kw: dict(
+        kw, q_pos=torch.zeros_like(kw["q_pos"]),
+        k_pos=torch.arange(kw["k_pos"].shape[1], device=kw["k_pos"].device
+                           ).expand_as(kw["k_pos"])),
+    "slots for positions": lambda kw: dict(
+        kw, k_pos=torch.arange(kw["k_pos"].shape[1], device=kw["k_pos"].device
+                               ).expand_as(kw["k_pos"])),
+}
+# the full-width f32 anchor: teacher-forced prefill + decode = forward,
+# the reference's own check and tolerance (tests/test_decode_consistency.py
+# :20-41), with a prompt past the 4096-token window
+ANCHOR = dict(B=2, S=4608, T=4)
+ANCHOR_TOL = 2e-3
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mtl_grad import ops as grad_ops
+    from repro_torch.kernels.mtl_score import ops as score_ops
+    from repro_torch.kernels.prox_step import ops as prox_ops
+    for fn in (score_ops.mtl_score, grad_ops.task_gradients,
+               prox_ops.prox_step, fa_ops.flash_attention):
+        fn.launches = 0
+
+
+def fa_inputs(case, dev="cuda"):
+    """q (normal at std ``FA_Q_STD``), k, v (standard normal), in the
+    case's dtype, and int32 positions for one ``FA_CASES`` entry, drawn
+    on the CPU from a generator seeded with the case's index (the same
+    bytes on every device) and moved to ``dev``.  Ring rows: even rows
+    fill every slot with wrapped positions, odd rows about half of them
+    (the rest empty, at ``EMPTY_POS``)."""
+    _, B, Sq, Sk, H, Hkv, hd, dtype, mode, _, _ = case
+    gen = torch.Generator().manual_seed(SEED + FA_CASES.index(case))
+    q = (FA_Q_STD * torch.randn(B, Sq, H, hd, generator=gen)).to(dtype)
+    k = torch.randn(B, Sk, Hkv, hd, generator=gen).to(dtype)
+    v = torch.randn(B, Sk, Hkv, hd, generator=gen).to(dtype)
+    q, k, v = q.to(dev), k.to(dev), v.to(dev)
+    if mode == "prefill":
+        pos = torch.arange(Sq, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        return q, k, v, pos, pos.clone()
+    k_pos = np.full((B, Sk), EMPTY_POS, np.int32)
+    q_pos = np.zeros((B, Sq), np.int32)
+    for b in range(B):
+        last = Sk + 16 + 37 * b
+        written = Sk if b % 2 == 0 else Sk // 2 - b
+        p = np.arange(last - written + 1, last + 1)
+        k_pos[b, p % Sk] = p
+        q_pos[b] = np.arange(last - Sq + 1, last + 1)
+    return (q, k, v, torch.from_numpy(q_pos).to(dev),
+            torch.from_numpy(k_pos).to(dev))
+
+
+def fa_error(out, ref, ref_abs, dtype):
+    """The attention check of ``out`` against the plain version ``ref``
+    on the same inputs, and ``ref_abs``, the plain version with |v| (the
+    sum over keys of p·|v|, the scale of the f32 accumulation's
+    rounding).  Returns max|out - ref|, max|ref| and the worst output
+    row's (one query, one head) ratio of max|out - ref| over its limit
+    ``FA_TOL[dtype]`` · max|ref row| + ``FA_TOL[f32]`` · max|ref_abs row|.
+    The check passes when max|out - ref| <= ``FA_TOL[dtype]`` · max|ref|
+    (the reference's tolerance) and the ratio is at most 1.  The row
+    limit keeps the check tight where a row averages thousands of keys
+    and its output is ~50 times smaller than the first rows' (which
+    attend to a few keys and set max|ref|)."""
+    out, ref, ref_abs = out.float(), ref.float(), ref_abs.float()
+    diff = (out - ref).abs().amax(-1)
+    mag = ref.abs().amax(-1)
+    limit = FA_TOL[dtype] * mag + FA_TOL[_F32] * ref_abs.abs().amax(-1)
+    ratio = torch.where(diff > 0, diff / limit, torch.zeros_like(diff))
+    return float(diff.max()), float(mag.max()), float(ratio.max())
+
+
+def fa_passes(err, scale, ratio, dtype) -> bool:
+    """Whether ``fa_error``'s numbers pass the check."""
+    return err <= FA_TOL[dtype] * scale and ratio <= 1.0
+
+
+def fa_controls(case, kw):
+    """The attentions that miss a feature the case exercises, as changed
+    keyword arguments of the call: the window dropped (where it binds),
+    the softcap dropped, ``k_pos`` taken as 0..Sk-1 (ring cases).  The
+    check must fail each."""
+    from repro_torch.kernels.flash_attention.ref import key_mask
+    mode, window, softcap = case[8:]
+    q_pos, k_pos = kw["q_pos"], kw["k_pos"]
+    out = {}
+    if window is not None and not torch.equal(
+            key_mask(q_pos, k_pos, True, window),
+            key_mask(q_pos, k_pos, True, None)):
+        out["window dropped"] = dict(kw, window=None)
+    if softcap:
+        out["softcap dropped"] = dict(kw, softcap=None)
+    if mode == "ring":
+        Sk = k_pos.shape[1]
+        out["k_pos ignored"] = dict(kw, k_pos=torch.arange(
+            Sk, dtype=k_pos.dtype, device=k_pos.device).expand_as(k_pos))
+    return out
+
+
+def fa_bound_ms(case, q, k, q_pos, k_pos):
+    """Least time for one call: Q, K, V and the positions read once, the
+    output written once, against a q·k dot and a p·v axpy per query head
+    for each (query, key) pair the mask lets through (this input's pairs),
+    at the peak rate of the inputs' type (bf16 tensor cores, or f32 CUDA
+    cores); also the bound at the f32 CUDA-core rate."""
+    from repro_torch.kernels.flash_attention.ref import key_mask
+    _, _, _, _, H, _, hd, dtype, _, window, _ = case
+    pairs = int(key_mask(q_pos, k_pos, True, window).sum())
+    flops = 4.0 * hd * H * pairs
+    nbytes = (2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+              + 4 * (q_pos.numel() + k_pos.numel()))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rate = BF16_FLOPS_PER_S if dtype == _BF16 else F32_FLOPS_PER_S
+    t_ops = flops / rate * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, max(t_bytes, flops / F32_FLOPS_PER_S * 1e3), flops, nbytes
+
+
+def fa_library(case, q, k, v, q_pos, k_pos):
+    """The same function as one PyTorch call: FlexAttention compiled by
+    PyTorch, with the softcap as a ``score_mod`` and the position mask as
+    a block mask (never called by the port); and SDPA with the same mask
+    and no softcap, a lower reference."""
+    import torch.nn.functional as F
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from repro_torch.kernels.flash_attention.ref import key_mask
+    _, B, Sq, Sk, H, Hkv, hd, _, _, window, softcap = case
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    qp, kp = q_pos.long(), k_pos.long()
+
+    def mask_mod(b, h, qi, ki):
+        ok = (kp[b, ki] >= 0) & (kp[b, ki] <= qp[b, qi])
+        if window is not None:
+            ok = ok & (kp[b, ki] > qp[b, qi] - window)
+        return ok
+
+    def score_mod(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    block_mask = create_block_mask(mask_mod, B, None, Sq, Sk, device="cuda")
+    flex = torch.compile(flex_attention)
+
+    def flex_call():
+        return flex(qt, kt, vt, score_mod=score_mod if softcap else None,
+                    block_mask=block_mask, scale=hd ** -0.5, enable_gqa=True)
+
+    mask = key_mask(q_pos, k_pos, True, window)[:, None]
+
+    def sdpa_call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              scale=hd ** -0.5,
+                                              enable_gqa=True)
+
+    return flex_call, sdpa_call
+
+
+def fa_kernel_phase():
+    """flash_attention against its plain version at the served shapes and
+    at edge shapes (each launched twice: the bytes must not move), the
+    calls that must fail (``fa_controls``: the window dropped, the
+    softcap dropped, ``k_pos`` ignored), then the times at the four
+    served shapes."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    max_abs_err, by_case = 0.0, []
+    for case in FA_CASES:
+        name, B, Sq, Sk, H, Hkv, hd, dtype, mode, window, softcap = case
+        q, k, v, q_pos, k_pos = fa_inputs(case)
+        kw = dict(q_pos=q_pos, k_pos=k_pos, causal=True, window=window,
+                  softcap=softcap)
+        out = fa_ops.flash_attention(q, k, v, **kw)
+        out2 = fa_ops.flash_attention(q, k, v, **kw)
+        ref = attention_ref(q, k, v, **kw)
+        ref_abs = attention_ref(q, k, v.abs(), **kw)
+        torch.cuda.synchronize()
+        check(out.shape == q.shape and out.dtype == dtype and
+              bool(torch.isfinite(out).all()), f"{name}: bad output")
+        check(torch.equal(out, out2), f"{name}: two launches gave different "
+              f"bytes")
+        err, scale, ratio = fa_error(out, ref, ref_abs, dtype)
+        tol = FA_TOL[dtype]
+        log(f"[kernel] flash_attention {name:30s} max|err| {err:.3e} / "
+            f"max|out| {scale:.3e} (tol {tol:g} x max|out|); worst row "
+            f"{ratio:.3f} of its limit; relaunch bitwise equal")
+        check(fa_passes(err, scale, ratio, dtype), f"{name}: kernel "
+              f"disagrees with the plain version: max|err| {err} (limit "
+              f"{tol * scale}), worst row {ratio} of its limit")
+        controls = {}
+        check(bool(fa_controls(case, kw)), f"{name}: the case exercises "
+              f"none of the checked features")
+        for what, wrong_kw in fa_controls(case, kw).items():
+            wrong = fa_ops.flash_attention(q, k, v, **wrong_kw)
+            w_err, _, w_ratio = fa_error(wrong, ref, ref_abs, dtype)
+            controls[what] = {"max_abs_err": w_err, "worst_row_ratio": w_ratio}
+            check(not fa_passes(w_err, scale, w_ratio, dtype),
+                  f"{name}: a kernel call with the {what} passed the check")
+            del wrong
+        log(f"[kernel] flash_attention {name:30s} must fail and does: "
+            + "; ".join(f"{what} max|err| {c['max_abs_err']:.3e}, worst row "
+                        f"{c['worst_row_ratio']:.1f} of its limit"
+                        for what, c in controls.items()))
+        by_case.append({"name": name, "max_abs_err": err, "max_abs_out": scale,
+                        "worst_row_ratio": ratio, "controls": controls})
+        if case in FA_MAIN:
+            max_abs_err = max(max_abs_err, err)
+        del q, k, v, out, out2, ref, ref_abs
+    torch.cuda.synchronize()
+
+    rows = []
+    for case in FA_MAIN:
+        name, B, Sq, Sk, H, Hkv, hd, dtype, mode, window, softcap = case
+        q, k, v, q_pos, k_pos = fa_inputs(case)
+        kw = dict(q_pos=q_pos, k_pos=k_pos, causal=True, window=window,
+                  softcap=softcap)
+
+        def kern():
+            return fa_ops.flash_attention(q, k, v, **kw)
+
+        reps, inner = (5, 2) if Sq > 1 else (20, 10)
+        k_ms = time_ms(kern, reps=reps, inner=inner)
+        g_ms = graph_ms(kern, reps=reps, inner=inner)
+        p_ms = time_ms(lambda: attention_ref(q, k, v, **kw), reps=reps,
+                       inner=inner)
+        lib_ms = sdpa_ms = None
+        try:
+            flex_call, sdpa_call = fa_library(case, q, k, v, q_pos, k_pos)
+            lib_err = float((flex_call().transpose(1, 2).float()
+                             - attention_ref(q, k, v, **kw).float()).abs().max())
+            lib_ms = time_ms(flex_call, reps=reps, inner=inner)
+            sdpa_ms = time_ms(sdpa_call, reps=reps, inner=inner)
+            lib_note = f"FlexAttention max|err| vs plain {lib_err:.3e}"
+        except Exception as exc:     # a comparison only, not the port
+            lib_note = f"FlexAttention not measured: {type(exc).__name__}: {exc}"
+        (b_ms, b_by), f32_ms, flops, nbytes = fa_bound_ms(case, q, k, q_pos,
+                                                          k_pos)
+        rows.append({"shape": {"name": name, "B": B, "Sq": Sq, "Sk": Sk,
+                               "H": H, "Hkv": Hkv, "hd": hd,
+                               "dtype": "bf16", "window": window,
+                               "softcap": softcap},
+                     "kernel_ms": k_ms, "kernel_graph_ms": g_ms,
+                     "plain_ms": p_ms, "library_ms": lib_ms,
+                     "sdpa_no_softcap_ms": sdpa_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_f32_cores_ms": f32_ms,
+                     "flops": flops, "bytes": nbytes})
+        fmt = lambda t: "-" if t is None else f"{t * 1e3:10.2f}"  # noqa: E731
+        log(f"[time] flash_attention {name:20s} kernel {fmt(k_ms)} us (graph "
+            f"{fmt(g_ms)} us)  plain {fmt(p_ms)} us  flex {fmt(lib_ms)} us  "
+            f"sdpa(no softcap) {fmt(sdpa_ms)} us  bound {b_ms * 1e3:9.3f} us "
+            f"({b_by}; f32 cores {f32_ms * 1e3:9.3f} us); "
+            f"{flops / (g_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"{nbytes / (g_ms * 1e-3) / 1e12:.3f} TB/s; {lib_note}")
+        del q, k, v
+    torch.cuda.synchronize()
+    return rows, max_abs_err, by_case
+
+
+@contextlib.contextmanager
+def plain_attention(attn_mod, decode_change=None):
+    """Send the model's attention through the plain version on the card,
+    for the comparison only: the port itself has no such switch.
+    ``decode_change`` (keyword arguments -> keyword arguments), if given,
+    alters the decode calls (one query), to make a wrong attention."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def plain(q, k, v, **kw):
+        if decode_change is not None and q.shape[1] == 1:
+            kw = decode_change(kw)
+        return attention_ref(q, k, v, **kw)
+
+    kernel_ops = attn_mod.fa_ops
+    attn_mod.fa_ops = types.SimpleNamespace(flash_attention=plain)
+    try:
+        yield
+    finally:
+        attn_mod.fa_ops = kernel_ops
+
+
+def close_excess(a, b, tol, chunk=512):
+    """max over elements of |a - b| - tol·|b| (<= tol passes
+    ``assert_allclose(a, b, atol=tol, rtol=tol)``) and max|a - b|, over
+    the sequence axis in chunks."""
+    excess = worst = 0.0
+    for s in range(0, a.shape[1], chunk):
+        d = (a[:, s:s + chunk] - b[:, s:s + chunk]).abs()
+        worst = max(worst, float(d.max()))
+        excess = max(excess, float((d - tol * b[:, s:s + chunk].abs()).max()))
+    return excess, worst
+
+
+def served_logits(model_mod, model, batch, toks, max_len):
+    """float32 logits (B, T, V) of prefill over ``batch`` and of a decode
+    step on each of ``toks[:, :-1]`` (B, T), teacher-forced, as the
+    engine runs a wave."""
+    B, S = batch["tokens"].shape
+    cache = model_mod.init_cache(model.cfg, B, max_len, model.device)
+    logits, cache = model_mod.prefill(model, batch, cache)
+    out = [logits.float()]
+    pos = torch.full((B,), S, dtype=torch.int32, device=model.device)
+    for t in range(toks.shape[1] - 1):
+        logits, cache = model_mod.decode_step(model, toks[:, t], pos, cache)
+        out.append(logits.float())
+        pos = pos + 1
+    return torch.stack(out, 1)
+
+
+def lm_phase(fa_ops):
+    """The LM serving path of gemma2-2b at full width: the f32 anchor
+    (forward == teacher-forced prefill + decode, kernel == plain), then
+    the served bf16 wave through ``ServeEngine``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(LM_ARCH)
+    V = cfg.vocab_size
+    out = {}
+
+    # -- the full-width anchor, f32 (the one deviation from FULL) --------
+    cfg32 = cfg.replace(dtype="float32")
+    B, S, T = ANCHOR["B"], ANCHOR["S"], ANCHOR["T"]
+    t0 = time.perf_counter()
+    model = model_mod.init_params(
+        cfg32, torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, V, (B, S + T))).cuda()
+    reset_counts()
+    full = model_mod.forward(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    check(full.shape == (B, S + T, V) and bool(torch.isfinite(full).all()),
+          "anchor: bad forward logits")
+    cache = model_mod.init_cache(cfg32, B, S + T)
+    first, cache = model_mod.prefill(model, {"tokens": toks[:, :S]}, cache)
+    steps = [first]
+    for t in range(T):
+        pos = torch.full((B,), S + t, dtype=torch.int32, device="cuda")
+        logits, cache = model_mod.decode_step(model, toks[:, S + t], pos, cache)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    anchor_launches = fa_ops.flash_attention.launches
+    check(anchor_launches == cfg.n_layers * (2 + T), f"anchor: "
+          f"{anchor_launches} flash_attention launches, want "
+          f"{cfg.n_layers * (2 + T)}")
+    dec = torch.stack(steps, 1)                       # (B, T+1, V)
+    dec_excess, dec_err = close_excess(dec, full[:, S - 1:], ANCHOR_TOL)
+    log(f"[lm] anchor {LM_ARCH} f32 ({n_params / 1e9:.3f}e9 params) B={B} "
+        f"S={S} T={T}: prefill + {T} decode steps vs forward max|err| "
+        f"{dec_err:.3e} (max|logit| {float(full.abs().max()):.2f}; "
+        f"tol {ANCHOR_TOL:g} abs + {ANCHOR_TOL:g} rel)")
+    check(dec_excess <= ANCHOR_TOL, f"anchor: teacher-forced decode "
+          f"disagrees with forward (excess {dec_excess})")
+    del cache, steps, dec
+    with plain_attention(attn_mod):
+        n0 = fa_ops.flash_attention.launches
+        plain = model_mod.forward(model, {"tokens": toks})
+        check(fa_ops.flash_attention.launches == n0,
+              "the plain forward launched the kernel")
+    torch.cuda.synchronize()
+    fwd_excess, fwd_err = close_excess(full, plain, ANCHOR_TOL)
+    log(f"[lm] anchor forward through the kernel vs through the plain "
+        f"version: max|err| {fwd_err:.3e} (tol {ANCHOR_TOL:g} abs + "
+        f"{ANCHOR_TOL:g} rel); {time.perf_counter() - t0:.1f} s")
+    check(fwd_excess <= ANCHOR_TOL, f"anchor: kernel forward disagrees with "
+          f"the plain forward (excess {fwd_excess})")
+    out["anchor"] = {"B": B, "S": S, "T": T, "dtype": "float32",
+                     "params": n_params, "decode_vs_forward_max_abs_err": dec_err,
+                     "kernel_vs_plain_forward_max_abs_err": fwd_err,
+                     "launches": anchor_launches}
+    del model, full, plain
+    torch.cuda.empty_cache()
+
+    # -- the served wave, bf16 (FULL) ------------------------------------
+    model = model_mod.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = [rng.integers(0, V, n).astype(np.int32) for n in SERVE_PROMPTS]
+
+    def requests():
+        return [Request(p, max_new_tokens=SERVE_NEW) for p in prompts]
+
+    B = len(prompts)
+    engine = ServeEngine(model, cfg, batch_size=B, max_len=SERVE_MAX_LEN)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = engine.generate(requests())
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = fa_ops.flash_attention.launches
+    want = cfg.n_layers * SERVE_NEW
+    log(f"[lm] served wave ({B} prompts of {list(SERVE_PROMPTS)} tokens, "
+        f"{SERVE_NEW} new each, greedy) in {t_first:.2f} s; flash_attention "
+        f"launched {launches} times (want {want})")
+    check(launches == want, f"served wave: {launches} flash_attention "
+          f"launches, want {want}")
+    toks_1 = [r.out_tokens for r in first]
+    check(all(len(t) == SERVE_NEW and all(0 <= x < V for x in t)
+              for t in toks_1), "served wave: wrong token counts or ids")
+    t0 = time.perf_counter()
+    toks_2 = [r.out_tokens for r in engine.generate(requests())]
+    torch.cuda.synchronize()
+    t_wave = time.perf_counter() - t0
+    check(toks_2 == toks_1, "served wave: a second greedy run gave other "
+          "tokens")
+    sampled = []
+    for _ in range(2):
+        hot = ServeEngine(model, cfg, batch_size=B, max_len=SERVE_MAX_LEN,
+                          temperature=SERVE_TEMPERATURE, seed=0)
+        sampled.append([r.out_tokens for r in hot.generate(requests())])
+    check(sampled[0] == sampled[1] and all(
+        len(t) == SERVE_NEW and all(0 <= x < V for x in t)
+        for t in sampled[0]), "temperature 0.8, seed 0: runs differ")
+    log(f"[lm] second greedy wave: same tokens, {t_wave:.3f} s "
+        f"({B * SERVE_NEW / t_wave:.1f} tokens/s); temperature "
+        f"{SERVE_TEMPERATURE} seed 0 twice: same tokens "
+        f"({sum(a != b for x, y in zip(sampled[0], toks_1) for a, b in zip(x, y))}"
+        f" of {B * SERVE_NEW} differ from greedy); first tokens "
+        f"{[t[:4] for t in toks_1]}")
+
+    # where a wave's time goes: prefill and decode steps, each synced
+    S = max(SERVE_PROMPTS)
+    batch = np.zeros((B, S), np.int64)
+    for i, p in enumerate(prompts):
+        batch[i, S - len(p):] = p
+    batch = {"tokens": torch.from_numpy(batch).cuda()}
+
+    # the served wave held to the plain version: the logits of prefill
+    # and of the decode steps teacher-forced on the greedy tokens, and
+    # the greedy tokens; wrong decode attentions must fail the logits
+    # check
+    toks_t = torch.tensor(toks_1, device="cuda")
+    logits_k = served_logits(model_mod, model, batch, toks_t, SERVE_MAX_LEN)
+    n0 = fa_ops.flash_attention.launches
+    with plain_attention(attn_mod):
+        logits_p = served_logits(model_mod, model, batch, toks_t,
+                                 SERVE_MAX_LEN)
+    check(fa_ops.flash_attention.launches == n0,
+          "the plain served wave launched the kernel")
+    check(torch.equal(logits_k.argmax(-1), toks_t), "served wave: the "
+          "teacher-forced kernel logits do not give the engine's tokens")
+    top2 = logits_p.topk(2, -1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    same = logits_p.argmax(-1) == toks_t
+    n_same, n_steps = int(same.sum()), same.numel()
+    serve_err = float((logits_k - logits_p).abs().max())
+    log(f"[lm] served wave through the kernel vs through the plain version "
+        f"(bf16): logits of prefill + {SERVE_NEW - 1} decode steps max|err| "
+        f"{serve_err:.3e} (limit {SERVE_LOGIT_TOL:g}; max|logit| "
+        f"{float(logits_p.abs().max()):.2f}); greedy tokens equal at "
+        f"{n_same} of {n_steps} steps (least plain top-2 "
+        f"margin {margin:.3e})")
+    check(serve_err <= SERVE_LOGIT_TOL, f"served wave: kernel logits "
+          f"disagree with the plain version's: {serve_err}")
+    check(n_same == n_steps, "served wave: the plain version picks other "
+          "greedy tokens")
+    serve_controls = {}
+    for what, change in SERVE_CONTROLS.items():
+        with plain_attention(attn_mod, change):
+            wrong = served_logits(model_mod, model, batch, toks_t,
+                                  SERVE_MAX_LEN)
+        serve_controls[what] = float((wrong - logits_p).abs().max())
+        check(serve_controls[what] > SERVE_LOGIT_TOL, f"served wave: a "
+              f"decode attention with {what} passed the logits check")
+        del wrong
+    log("[lm] served wave, wrong decode attentions must fail the logits "
+        "check and do: " + "; ".join(f"{what} max|err| {e:.3e}" for what, e
+                                     in serve_controls.items()))
+    del logits_k, logits_p, top2, same
+    torch.cuda.empty_cache()
+
+    def prefill():
+        cache = model_mod.init_cache(cfg, B, SERVE_MAX_LEN)
+        logits, cache = model_mod.prefill(model, batch, cache)
+        return torch.argmax(logits, -1), cache
+
+    def decode(cur, cache, times):
+        pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        for _ in range(SERVE_NEW - 1):
+            t0 = time.perf_counter()
+            logits, cache = model_mod.decode_step(model, cur, pos, cache)
+            cur = torch.argmax(logits, -1)
+            cur.cpu()                               # the engine's one sync
+            times.append((time.perf_counter() - t0) * 1e3)
+            pos = pos + 1
+
+    pre_ms, dec_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cur, cache = prefill()
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    decode(cur, cache, dec_ms)
+    cur, cache = prefill()
+    dec_kernels, dec_us = profile_kernels(lambda: decode(cur, cache, []))
+    del cache
+    kernels, window_us = profile_kernels(lambda: engine.generate(requests()))
+    busy = sum(kernels.values()) / window_us
+    dec_busy = sum(dec_kernels.values()) / dec_us
+    fa_us = sum(us for name, us in kernels.items() if "flash_attention" in name)
+    dec_fa_us = sum(us for name, us in dec_kernels.items()
+                    if "flash_attention" in name)
+    log(f"[lm] prefill {statistics.median(pre_ms):.2f} ms (of {pre_ms}); "
+        f"decode step median {statistics.median(dec_ms):.3f} ms (min "
+        f"{min(dec_ms):.3f}, max {max(dec_ms):.3f})")
+    log(f"[lm] profiled {SERVE_NEW - 1} decode steps: device "
+        f"{sum(dec_kernels.values()) / (SERVE_NEW - 1) / 1e3:.3f} ms a step, "
+        f"flash_attention {dec_fa_us / (SERVE_NEW - 1) / 1e3:.3f} ms a step; "
+        + describe_profile(dec_kernels, dec_us, top=6))
+    log(f"[lm] profiled one wave: flash_attention kernels {fa_us:.1f} us; "
+        + describe_profile(kernels, window_us, top=8))
+    out["serve"] = {
+        "arch": LM_ARCH, "dtype": cfg.dtype, "batch": B,
+        "prompts": list(SERVE_PROMPTS), "new_tokens": SERVE_NEW,
+        "max_len": SERVE_MAX_LEN, "launches": launches,
+        "first_wave_s": t_first, "wave_s": t_wave,
+        "kernel_vs_plain_logits_max_abs_err": serve_err,
+        "plain_greedy_equal": [n_same, n_steps],
+        "plain_top2_margin_min": margin,
+        "wrong_decode_logits_max_abs_err": serve_controls,
+        "tokens_per_s": B * SERVE_NEW / t_wave,
+        "prefill_ms": statistics.median(pre_ms), "prefill_ms_all": pre_ms,
+        "decode_step_ms_median": statistics.median(dec_ms),
+        "decode_step_ms_all": dec_ms,
+        "profiled_wave_us": window_us, "profiled_device_busy_share": busy,
+        "profiled_flash_attention_us": fa_us,
+        "profiled_decode_us": dec_us, "profiled_decode_busy_share": dec_busy,
+        "profiled_decode_device_us": sum(dec_kernels.values()),
+        "profiled_decode_flash_attention_us": dec_fa_us,
+        "profiled_kernel_us": dict(sorted(kernels.items(),
+                                          key=lambda kv: -kv[1])[:12])}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to run",
@@ -975,6 +1594,8 @@ def main() -> int:
     from repro_torch.kernels.mtl_score.ref import (dequantize_codes,
                                                    mtl_score_ref,
                                                    quantize_codes)
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.prox_step import kernel as prox_kernel
     from repro_torch.kernels.prox_step import ops as prox_ops
     from repro_torch.serve.mtl import FactoredModel, MTLServer
@@ -991,7 +1612,7 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------
     build_all({"mtl_score": score_kernel, "mtl_grad": grad_kernel,
-               "prox_step": prox_kernel})
+               "prox_step": prox_kernel, "flash_attention": fa_kernel})
     torch.cuda.synchronize()
 
     # -- 3. kernel vs plain ------------------------------------------------
@@ -1209,6 +1830,10 @@ def main() -> int:
     check(a["launches"]["mtl_grad"] > 0 and b["launches"]["mtl_grad"] > 0,
           "the solver paths never launched mtl_grad")
 
+    # -- 10. the LM serving path -------------------------------------------
+    fa_rows, fa_err, fa_cases = fa_kernel_phase()
+    lm = lm_phase(fa_ops)
+
     # -- results -----------------------------------------------------------
     main_row = next(b_ for b_ in by_batch
                     if b_["B"] == WAVE and b_["code_dtype"] == "f32")
@@ -1268,12 +1893,33 @@ def main() -> int:
         "library_ms": prox_rows[0]["library_ms"],
         "shape": prox_rows[0]["shape"],
         "by_shape": prox_rows,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+        "launches": lm["serve"]["launches"],
+        "launches_by_path": {"LM served wave": lm["serve"]["launches"],
+                             "LM f32 anchor": lm["anchor"]["launches"]},
+        "max_abs_err": fa_err,
+        "ms": fa_rows[0]["kernel_ms"],
+        "kernel_ms": fa_rows[0]["kernel_ms"],
+        "kernel_graph_ms": fa_rows[0]["kernel_graph_ms"],
+        "plain_ms": fa_rows[0]["plain_ms"],
+        "bound_ms": fa_rows[0]["bound_ms"],
+        "bound_by": fa_rows[0]["bound_by"],
+        "library_ms": fa_rows[0]["library_ms"],
+        "shape": fa_rows[0]["shape"],
+        "by_shape": fa_rows,
+        "cases": fa_cases,
     }], "serve": {"requests_per_call": N_REQUESTS, "wave": WAVE,
                   "first_call_s": t_score, "p50_call_s": p50,
                   "max_call_s": worst, "requests_per_s_p50": N_REQUESTS / p50,
                   "profiled_device_busy_share": busy if kernels else None,
                   "profiled_kernel_us": kernels},
-        "solver": {"A": a, "B": b, "C": c, "D": d}, "sampler": sampler}
+        "solver": {"A": a, "B": b, "C": c, "D": d}, "sampler": sampler,
+        "lm": lm}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -119,16 +119,18 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, bit_width: int,
                 shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.bits`` at 32 bits (partitionable): the XOR of the two
-    hash words of each flat index.  uint32 values in an int64 tensor of
-    shape ``(*K, *shape)``."""
-    if bit_width != 32:
-        raise ValueError(f"only 32-bit draws are ported, not {bit_width}")
+    """``jax.random.bits`` at 32, 16 or 8 bits (partitionable): the XOR
+    of the two hash words of each flat index, cut to its low
+    ``bit_width`` bits.  Unsigned values in an int64 tensor of shape
+    ``(*K, *shape)``."""
+    if bit_width not in (8, 16, 32):
+        raise ValueError(f"only 8-, 16- and 32-bit draws are ported, not "
+                         f"{bit_width}")
     shape = tuple(int(s) for s in shape)
     hi, lo = _counters(shape, key.device)
     k0, k1 = _key_words(key, len(shape))
     y0, y1 = threefry2x32(k0, k1, hi, lo)
-    return y0 ^ y1
+    return (y0 ^ y1) & ((1 << bit_width) - 1)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
@@ -155,19 +157,32 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0, dtype: torch.dtype = torch.float32
             ) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under
-    the exponent of 1.0, minus 1, scaled to ``[minval, maxval)``.
+    """``jax.random.uniform`` in float32 or bfloat16: the random mantissa
+    bits under the exponent of 1.0, minus 1, scaled to ``[minval,
+    maxval)``.  float32 takes 23 of 32 random bits; bfloat16, whose 7
+    mantissa bits are fewer than 8, takes 7 of 8 (``_uniform``'s
+    ``rng_bits``).
 
-    XLA fuses the scaling ``floats * (maxval - minval) + minval`` into
-    one fused multiply-add; the port forms it in float64 (the product
-    of two float32 values is exact there) and rounds once to float32."""
-    if dtype != torch.float32:
-        raise ValueError(f"only float32 draws are ported, not {dtype}")
-    bits = random_bits(key, 32, shape)
-    fbits = (bits >> 9) | 0x3F800000
-    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    In float32 XLA fuses the scaling ``floats * (maxval - minval) +
+    minval`` into one fused multiply-add; the port forms it in float64
+    (the product of two float32 values is exact there) and rounds once.
+    In bfloat16 XLA rounds the product and the sum each, as the port
+    does."""
+    if dtype == torch.float32:
+        bits = random_bits(key, 32, shape)
+        fbits = (bits >> 9) | 0x3F800000
+        floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    elif dtype == torch.bfloat16:
+        bits = random_bits(key, 8, shape)
+        fbits = ((bits >> 1) | 0x3F80).to(torch.int16)
+        floats = fbits.view(torch.bfloat16) - 1.0
+    else:
+        raise ValueError(f"only float32 and bfloat16 draws are ported, "
+                         f"not {dtype}")
     lo = torch.tensor(minval, dtype=dtype, device=key.device)
     span = torch.tensor(maxval, dtype=dtype, device=key.device) - lo
+    if dtype == torch.bfloat16:
+        return torch.maximum(lo, floats * span + lo)
     scaled = floats.double() * span.double() + lo.double()
     return torch.maximum(lo, scaled.to(dtype))
 
@@ -205,3 +220,25 @@ def normal(key: torch.Tensor, shape: Sequence[int],
     u = uniform(key, shape, lo, 1.0, dtype)
     return torch.tensor(math.sqrt(2), dtype=dtype, device=key.device) \
         * _erfinv_f32(u)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int],
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default ("low") mode:
+    ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)`` in ``dtype``
+    (``u`` bitwise the reference's).  The logarithms run in float32 and
+    round once to ``dtype``; in float32 the draws agree with the
+    reference's to ~1e-7 relative (the two ``log`` implementations)."""
+    tiny = torch.finfo(dtype).tiny
+    u = uniform(key, shape, tiny, 1.0, dtype)
+    return (-torch.log(-torch.log(u.to(torch.float32)))).to(dtype)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` with ``axis=-1`` and
+    ``replace=True``: the Gumbel-max trick, ``argmax(logits + g)`` over
+    the last axis with ``g`` a :func:`gumbel` draw of the logits' shape
+    and dtype (first index on ties, as ``jnp.argmax``).  Returns int64
+    indices of shape ``logits.shape[:-1]``."""
+    g = gumbel(key, tuple(logits.shape), logits.dtype)
+    return torch.argmax(g + logits, dim=-1)

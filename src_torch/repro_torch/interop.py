@@ -8,7 +8,8 @@ to :func:`factored_from_numpy`.  The bytes are kept as they are, so the
 port's model has the reference model's ``version``.  A problem crosses
 with :func:`problem_from_numpy` (its Gram cache too, when the reference
 built one), and a spectral engine's warm carry with
-:func:`sv_carry_from_numpy`.  This module imports neither JAX nor the
+:func:`sv_carry_from_numpy`, a language model's parameter tree with
+:func:`lm_params_from_numpy`.  This module imports neither JAX nor the
 reference: the caller does the ``np.asarray``.
 """
 from __future__ import annotations
@@ -20,7 +21,10 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .core.methods.base import MTLProblem
+from .configs.base import ModelConfig
 from .core.losses import get_loss
+from .models.blocks import _pattern_names, build_plan
+from .models.model import LM
 from .serve.mtl import FactoredModel
 
 
@@ -82,3 +86,67 @@ def sv_carry_from_numpy(carry: Dict[str, np.ndarray],
     return {"V": _move(carry["V"], dev), "s": _move(carry["s"], dev),
             "T": _move(carry["T"], dev), "warm": int(carry["warm"]),
             "exact_rounds": int(carry["exact_rounds"])}
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor, bf16 (``ml_dtypes.bfloat16``, which
+    numpy holds as 2-byte words) kept bit for bit."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _fill(param: torch.Tensor, a, name: str) -> None:
+    t = _tensor(a)
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: reference shape {tuple(t.shape)}, port "
+                         f"shape {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(t)
+
+
+def _fill_layer(layer, tree, j: int, name: str) -> None:
+    """Layer ``j`` of a stacked reference layer tree into ``layer``."""
+    for norm in ("norm1", "norm2"):
+        for leaf, a in tree[norm].items():
+            _fill(getattr(getattr(layer, norm), leaf), a[j],
+                  f"{name}.{norm}.{leaf}")
+    for w in ("wq", "wk", "wv", "wo"):
+        _fill(getattr(layer.attn, w), tree["attn"][w][j], f"{name}.attn.{w}")
+    for w, a in tree["mlp"].items():
+        _fill(getattr(layer.mlp, w), a[j], f"{name}.mlp.{w}")
+
+
+def lm_params_from_numpy(tree: Dict[str, object], cfg: ModelConfig,
+                         device: DeviceLike = None) -> LM:
+    """The port's :class:`~repro_torch.models.model.LM` on ``device``
+    (default: the card) holding the reference's parameters
+    (``jax.tree.map(np.asarray, params)``): ``embed.table``,
+    ``final_norm``, ``head.w`` when untied, and per segment the layer
+    trees stacked on a leading layer axis.  Weights keep the reference's
+    ``(d_in, d_out)`` layout and dtype; super-block ``j``'s entry
+    ``name`` of an ``attn_pattern`` segment becomes layer
+    ``len(pattern) * j + index(name)``."""
+    model = LM(cfg, resolve_device(device))
+    _fill(model.embed, tree["embed"]["table"], "embed.table")
+    for leaf, a in tree["final_norm"].items():
+        _fill(getattr(model.final_norm, leaf), a, f"final_norm.{leaf}")
+    if model.head is not None:
+        _fill(model.head, tree["head"]["w"], "head.w")
+    first = 0
+    for seg, seg_tree in zip(build_plan(cfg), tree["segments"]):
+        if seg.kind == "attn":
+            for j in range(seg.count):
+                _fill_layer(model.layers[first + j], seg_tree, j,
+                            f"layer {first + j}")
+            first += seg.count
+            continue
+        names = _pattern_names(cfg)          # attn_pattern (LM checked)
+        for j in range(seg.count):
+            for i, name in enumerate(names):
+                idx = first + len(names) * j + i
+                _fill_layer(model.layers[idx], seg_tree[name], j,
+                            f"layer {idx} ({name})")
+        first += seg.count * len(names)
+    return model

@@ -1,0 +1,101 @@
+"""Layer-stack assembly: the segment plan, the attention layer, caches.
+
+Port of the dense part of ``repro.models.blocks``.  The reference
+compiles an architecture into a plan of segments and runs each segment's
+stacked layers with ``lax.scan``; the port keeps the plan, unrolls it
+into an ``nn.ModuleList`` of layers in the reference's order, and runs
+them with a Python loop (no scan; ``cfg.remat`` and ``cfg.scan_layers``
+only shape the reference's compiled programs and are ignored here).
+
+Ported segments: ``"attn"`` (uniform attention layers) and
+``"attn_pattern"`` (super-blocks cycling ``cfg.attn_pattern``, gemma2's
+local/global pairs, layers in pattern order within each super-block).
+The reference's ``"mamba"``, ``"shared_attn"`` and ``"xattn"`` segments
+and MoE layers are not ported: their families raise
+:class:`NotImplementedError` in :mod:`repro_torch.models.model`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .attention import Attention, init_kv_cache
+from .common import Norm
+from .mlp import MLP
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    kind: str
+    count: int = 1
+    window: Optional[int] = None
+
+
+def build_plan(cfg: ModelConfig) -> List[Segment]:
+    """The reference's segment plan for a dense config (the families and
+    MoE that it does not cover are refused by
+    :func:`repro_torch.models.model._check_ported` first)."""
+    if cfg.attn_pattern:
+        plen = len(cfg.attn_pattern)
+        if cfg.n_layers % plen:
+            raise ValueError(f"{cfg.arch_id}: n_layers {cfg.n_layers} is not "
+                             f"a multiple of the pattern length {plen}")
+        return [Segment("attn_pattern", cfg.n_layers // plen)]
+    return [Segment("attn", cfg.n_layers, window=cfg.sliding_window)]
+
+
+def _pattern_names(cfg: ModelConfig) -> List[str]:
+    """Names of a super-block's layers: the pattern entry, suffixed with
+    its index where the entry repeats."""
+    return [name if cfg.attn_pattern.count(name) == 1 else f"{name}{i}"
+            for i, name in enumerate(cfg.attn_pattern)]
+
+
+def segment_windows(cfg: ModelConfig, seg: Segment) -> List[Optional[int]]:
+    """The sliding window of each layer of a segment, in layer order
+    (None: global attention)."""
+    if seg.kind == "attn":
+        return [seg.window] * seg.count
+    if seg.kind == "attn_pattern":
+        per = [cfg.sliding_window if name.startswith("local") else None
+               for name in _pattern_names(cfg)]
+        return per * seg.count
+    raise ValueError(seg.kind)
+
+
+class AttnLayer(nn.Module):
+    """Pre-norm attention + MLP residual layer (the reference's
+    ``_attn_layer`` without MoE, cross-attention or the training-only
+    gradient cast)."""
+
+    def __init__(self, cfg: ModelConfig, window: Optional[int],
+                 device: torch.device):
+        super().__init__()
+        self.window = window
+        self.norm1 = Norm(cfg, cfg.d_model, device)
+        self.attn = Attention(cfg, device)
+        self.norm2 = Norm(cfg, cfg.d_model, device)
+        self.mlp = MLP(cfg, device)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.norm1.reset_parameters()
+        self.attn.reset_parameters(generator)
+        self.norm2.reset_parameters()
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), positions=positions, cache=cache,
+                          window=self.window)
+        return x + self.mlp(self.norm2(x))
+
+
+def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int,
+                       max_len: int, device: torch.device) -> List[dict]:
+    """The decode caches of one segment's layers, in layer order."""
+    return [init_kv_cache(cfg, batch, max_len, w, device)
+            for w in segment_windows(cfg, seg)]

@@ -1,0 +1,166 @@
+"""Model-level API of the dense LMs: init, forward, cache, prefill, decode.
+
+Port of ``repro.models.model`` for the decoder-only dense family.  The
+reference's params are a pytree beside a static config; the port's model
+is an :class:`LM` module that holds its config, and the entry points take
+it where the reference takes ``(params, cfg)``:
+
+  init_params(cfg, generator, device)   -> LM (random init, seeded)
+  forward(model, batch)                 -> logits (B, S, V), no cache
+  init_cache(cfg, batch, max_len, device) -> list of per-layer caches
+  prefill(model, batch, cache)          -> (last-token logits (B, V), cache)
+  decode_step(model, token, pos, cache) -> (logits (B, V), cache)
+
+``batch`` is ``{"tokens": (B, S) int}``.  Positions are ``0..S-1`` for
+every row, padding included, as in the reference.  Encoder-decoder,
+VLM, learned positions and MTP raise :class:`NotImplementedError`.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .._device import DeviceLike, resolve_device
+from ..configs.base import ModelConfig
+from .blocks import AttnLayer, build_plan, init_segment_cache, \
+    segment_windows
+from .common import Norm, dtype_of, embed, truncated_normal_, unembed
+
+
+_NOT_PORTED = {
+    "ssm": "mamba layers are not ported: ROADMAP Queue 1 item 11b",
+    "hybrid": "mamba layers and the shared attention block (zamba2) are "
+              "not ported: ROADMAP Queue 1 items 11b and 11c",
+    "moe": "MoE layers are not ported: ROADMAP Queue 1 item 11c",
+    "encdec": "the encdec family (whisper's cross-attention layers) is not "
+              "ported: ROADMAP Queue 1 item 11c",
+    "vlm": "the vlm family is not ported: ROADMAP Queue 1 item 11c",
+}
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family in _NOT_PORTED or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: {_NOT_PORTED.get(cfg.family, _NOT_PORTED['moe'])}")
+    if cfg.mtp or cfg.learned_pos_embed:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: MTP heads and learned positions are not "
+            f"ported: ROADMAP Queue 1 item 11c")
+
+
+class LM(nn.Module):
+    """Embedding, the layer stack in the reference's order, the final
+    norm and the (tied or untied) unembedding.  Parameters are created
+    uninitialised on ``device``; :func:`init_params` draws them and
+    :func:`repro_torch.interop.lm_params_from_numpy` copies them in."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        cfg.validate()
+        _check_ported(cfg)
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        shape = (cfg.vocab_size, cfg.d_model)
+        self.embed = nn.Parameter(torch.empty(shape, dtype=dt, device=device),
+                                  requires_grad=False)
+        self.final_norm = Norm(cfg, cfg.d_model, device)
+        self.head = (None if cfg.tie_embeddings else
+                     nn.Parameter(torch.empty(shape, dtype=dt, device=device),
+                                  requires_grad=False))
+        windows = [w for seg in build_plan(cfg)
+                   for w in segment_windows(cfg, seg)]
+        self.layers = nn.ModuleList(AttnLayer(cfg, w, device)
+                                    for w in windows)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """The reference's initializers: embedding std 1, untied head std
+        ``d_model ** -0.5``, dense weights std ``d_in ** -0.5`` (output
+        projections ``d_out``-scaled as in the reference), norms zero."""
+        truncated_normal_(self.embed, 1.0, generator)
+        self.final_norm.reset_parameters()
+        if self.head is not None:
+            truncated_normal_(self.head, self.cfg.d_model ** -0.5, generator)
+        for layer in self.layers:
+            layer.reset_parameters(generator)
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None) -> LM:
+    """A randomly initialised model on ``device`` (default: the card),
+    drawn from ``generator`` (a ``torch.Generator`` on that device)."""
+    model = LM(cfg, resolve_device(device))
+    model.reset_parameters(generator)
+    return model
+
+
+def _tokens(model: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    extra = sorted(set(batch) - {"tokens"})
+    if extra:
+        raise NotImplementedError(
+            f"batch keys {extra} (modality prefixes, prefix-LM) are not "
+            f"ported: ROADMAP Queue 1 item 11c")
+    return torch.as_tensor(batch["tokens"], device=model.device)
+
+
+def _positions(B: int, S: int, device: torch.device) -> torch.Tensor:
+    return (torch.arange(S, dtype=torch.int32, device=device)[None]
+            .expand(B, S).contiguous())
+
+
+def _trunk(model: LM, x: torch.Tensor, positions: torch.Tensor,
+           caches: Optional[List[dict]] = None) -> torch.Tensor:
+    for i, layer in enumerate(model.layers):
+        x = layer(x, positions=positions,
+                  cache=None if caches is None else caches[i])
+    return model.final_norm(x)
+
+
+@torch.no_grad()
+def forward(model: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence forward without a cache: logits (B, S, V)."""
+    tokens = _tokens(model, batch)
+    B, S = tokens.shape
+    x = embed(model.embed, tokens, model.cfg)
+    x = _trunk(model, x, _positions(B, S, model.device))
+    return unembed(model.embed, model.head, x, model.cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> List[dict]:
+    """One ring-buffer cache per layer, in layer order."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    return [c for seg in build_plan(cfg)
+            for c in init_segment_cache(cfg, seg, batch, max_len, dev)]
+
+
+@torch.no_grad()
+def prefill(model: LM, batch: Dict[str, torch.Tensor], cache: List[dict]
+            ) -> Tuple[torch.Tensor, List[dict]]:
+    """Run the prompt through the trunk, filling the cache in place.
+    Returns (last-token logits (B, V), cache)."""
+    tokens = _tokens(model, batch)
+    B, S = tokens.shape
+    x = embed(model.embed, tokens, model.cfg)
+    x = _trunk(model, x, _positions(B, S, model.device), cache)
+    logits = unembed(model.embed, model.head, x[:, -1:], model.cfg)
+    return logits[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(model: LM, token: torch.Tensor, pos: torch.Tensor,
+                cache: List[dict]) -> Tuple[torch.Tensor, List[dict]]:
+    """One decode step. token: (B,) int; pos: (B,) absolute positions.
+    Returns (logits (B, V), cache), the cache updated in place."""
+    token = torch.as_tensor(token, device=model.device)
+    positions = torch.as_tensor(pos, device=model.device).to(
+        torch.int32).reshape(-1, 1)
+    x = embed(model.embed, token[:, None], model.cfg)
+    x = _trunk(model, x, positions, cache)
+    return unembed(model.embed, model.head, x, model.cfg)[:, 0], cache

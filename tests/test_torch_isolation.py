@@ -1,6 +1,6 @@
 """The port stands alone: nothing under ``src_torch/`` and not
 ``chip_smoke.py`` imports JAX or the reference package, importing the
-serving and solver paths leaves JAX unloaded, and the entry points
+serving, solver and LM paths leaves JAX unloaded, and the entry points
 default to the card."""
 import ast
 import pathlib
@@ -86,6 +86,36 @@ def test_the_stochastic_path_leaves_jax_unloaded():
     assert proc.stdout.strip() == "clean"
 
 
+def test_the_lm_serving_path_leaves_jax_unloaded():
+    """The slice-4 modules import, and a seeded model serves a wave on
+    the CPU, without JAX or the reference."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
+        "import numpy as np, torch\n"
+        "import repro_torch.configs, repro_torch.models.model\n"
+        "import repro_torch.serve.engine\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.models import init_params\n"
+        "from repro_torch.serve.engine import Request, ServeEngine\n"
+        "cfg = get_smoke_config('gemma2-2b')\n"
+        "model = init_params(cfg, torch.Generator().manual_seed(0),\n"
+        "                    device='cpu')\n"
+        "eng = ServeEngine(model, cfg, batch_size=2, max_len=32,\n"
+        "                  device='cpu')\n"
+        "reqs = eng.generate([Request(np.arange(5), max_new_tokens=3)])\n"
+        "assert len(reqs[0].out_tokens) == 3\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
 def test_entry_points_default_to_the_card():
     """``device=None`` means CUDA; on a host without a card the problem
     constructor and the front door raise instead of using the CPU."""
@@ -103,3 +133,14 @@ def test_entry_points_default_to_the_card():
     prob = MTLProblem.make(X, y, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.solve(prob, method="local")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_smoke_config("gemma2-2b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
+    model = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(model, cfg, batch_size=1, max_len=8, device=None)
