@@ -62,12 +62,29 @@ raises and the script exits non-zero:
    steps within ``SERVE_LOGIT_TOL`` of those through the plain version
    and its greedy tokens equal, two wrong decode attentions outside that
    limit, prefill and decode times, and a
-   ``torch.profiler`` window over one wave.
+   ``torch.profiler`` window over one wave;
+11. falcon-mamba-7b served at full width: (a) the ``ssm_scan`` kernel
+   against its plain version at the served shapes (prefill B=8 S=2048
+   I=8192 N=16 bf16 from a zero and a random state, a 4096-token
+   forward without one, a decode step from a random state), at larger
+   dt, and at edge shapes (I=100, N 4/8/16, S 1/33, f32), relaunches
+   bitwise, y and h_final held per row to ``SSM_TOL``, scans that must
+   fail (the state ignored, C_t from step t-1, the last step dropped),
+   then its times beside the plain version and the bound; (b) the f32
+   anchor (falcon-mamba-7b FULL in float32, B=2, a 1024-token prompt, 4
+   teacher-forced tokens): ``forward`` == ``prefill`` + ``decode_step``
+   and kernel ``forward`` == plain ``forward``, to 2e-3; (c) the served
+   bf16 wave through ``ServeEngine`` (8 prompts of 2048 down to 17
+   tokens, 32 new each): 2048 kernel launches, greedy and
+   seeded-temperature runs repeatable, the logits of prefill and the
+   teacher-forced decode steps within ``SSM_SERVE_TOL`` of those through
+   the plain version, two wrong decode scans outside it, prefill and
+   decode times, and a ``torch.profiler`` window over one wave.
 
 Phase 3 also checks the seeded sampler on the card against the CPU,
-bit for bit, and times a draw.  Phases 4, 6-9 and 10's served wave each
-set the launch counters to 0 just before they run and read them just
-after.  It prints a ``{"kernels": [...]}`` line and,
+bit for bit, and times a draw.  Phases 4, 6-9 and the served waves and
+f32 anchors of 10 and 11 each set the launch counters to 0 just before
+they run and read them just after.  It prints a ``{"kernels": [...]}`` line and,
 last, the contract line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
@@ -90,6 +107,7 @@ import types
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 P, M, R = 2048, 4096, 4          # BENCH_serve.json acceptance point
@@ -1063,8 +1081,10 @@ def reset_counts() -> None:
     from repro_torch.kernels.mtl_grad import ops as grad_ops
     from repro_torch.kernels.mtl_score import ops as score_ops
     from repro_torch.kernels.prox_step import ops as prox_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
     for fn in (score_ops.mtl_score, grad_ops.task_gradients,
-               prox_ops.prox_step, fa_ops.flash_attention):
+               prox_ops.prox_step, fa_ops.flash_attention,
+               ssm_ops.selective_scan):
         fn.launches = 0
 
 
@@ -1167,7 +1187,6 @@ def fa_library(case, q, k, v, q_pos, k_pos):
     PyTorch, with the softcap as a ``score_mod`` and the position mask as
     a block mask (never called by the port); and SDPA with the same mask
     and no softcap, a lower reference."""
-    import torch.nn.functional as F
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
     from repro_torch.kernels.flash_attention.ref import key_mask
@@ -1350,32 +1369,26 @@ def served_logits(model_mod, model, batch, toks, max_len):
     return torch.stack(out, 1)
 
 
-def lm_phase(fa_ops):
-    """The LM serving path of gemma2-2b at full width: the f32 anchor
-    (forward == teacher-forced prefill + decode, kernel == plain), then
-    the served bf16 wave through ``ServeEngine``."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import attention as attn_mod
-    from repro_torch.models import model as model_mod
-    from repro_torch.serve.engine import Request, ServeEngine
-    cfg = get_config(LM_ARCH)
-    V = cfg.vocab_size
-    out = {}
-
-    # -- the full-width anchor, f32 (the one deviation from FULL) --------
+def lm_anchor(tag, model_mod, cfg, anchor, rng, count, plain_ctx):
+    """The full-width f32 anchor of an LM serving phase (the one deviation
+    from FULL): ``cfg`` in float32 with seeded weights, B × (S + T)
+    tokens from ``rng``; ``forward`` == ``prefill`` + T teacher-forced
+    ``decode_step``s, and ``forward`` through the kernel == through the
+    plain version (inside ``plain_ctx()``), to ``ANCHOR_TOL``.
+    ``count()`` reads the kernel's launches, n_layers · (2 + T) here."""
     cfg32 = cfg.replace(dtype="float32")
-    B, S, T = ANCHOR["B"], ANCHOR["S"], ANCHOR["T"]
+    V, L = cfg.vocab_size, cfg.n_layers
+    B, S, T = anchor["B"], anchor["S"], anchor["T"]
     t0 = time.perf_counter()
     model = model_mod.init_params(
         cfg32, torch.Generator(device="cuda").manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, V, (B, S + T))).cuda()
     reset_counts()
     full = model_mod.forward(model, {"tokens": toks})
     torch.cuda.synchronize()
     check(full.shape == (B, S + T, V) and bool(torch.isfinite(full).all()),
-          "anchor: bad forward logits")
+          f"{tag} anchor: bad forward logits")
     cache = model_mod.init_cache(cfg32, B, S + T)
     first, cache = model_mod.prefill(model, {"tokens": toks[:, :S]}, cache)
     steps = [first]
@@ -1384,104 +1397,191 @@ def lm_phase(fa_ops):
         logits, cache = model_mod.decode_step(model, toks[:, S + t], pos, cache)
         steps.append(logits)
     torch.cuda.synchronize()
-    anchor_launches = fa_ops.flash_attention.launches
-    check(anchor_launches == cfg.n_layers * (2 + T), f"anchor: "
-          f"{anchor_launches} flash_attention launches, want "
-          f"{cfg.n_layers * (2 + T)}")
+    launches = count()
+    check(launches == L * (2 + T), f"{tag} anchor: {launches} kernel "
+          f"launches, want {L * (2 + T)}")
     dec = torch.stack(steps, 1)                       # (B, T+1, V)
     dec_excess, dec_err = close_excess(dec, full[:, S - 1:], ANCHOR_TOL)
-    log(f"[lm] anchor {LM_ARCH} f32 ({n_params / 1e9:.3f}e9 params) B={B} "
-        f"S={S} T={T}: prefill + {T} decode steps vs forward max|err| "
+    log(f"[{tag}] anchor {cfg.arch_id} f32 ({n_params / 1e9:.3f}e9 params) "
+        f"B={B} S={S} T={T}: prefill + {T} decode steps vs forward max|err| "
         f"{dec_err:.3e} (max|logit| {float(full.abs().max()):.2f}; "
         f"tol {ANCHOR_TOL:g} abs + {ANCHOR_TOL:g} rel)")
-    check(dec_excess <= ANCHOR_TOL, f"anchor: teacher-forced decode "
+    check(dec_excess <= ANCHOR_TOL, f"{tag} anchor: teacher-forced decode "
           f"disagrees with forward (excess {dec_excess})")
     del cache, steps, dec
-    with plain_attention(attn_mod):
-        n0 = fa_ops.flash_attention.launches
+    with plain_ctx():
         plain = model_mod.forward(model, {"tokens": toks})
-        check(fa_ops.flash_attention.launches == n0,
-              "the plain forward launched the kernel")
+        check(count() == launches, "the plain forward launched the kernel")
     torch.cuda.synchronize()
     fwd_excess, fwd_err = close_excess(full, plain, ANCHOR_TOL)
-    log(f"[lm] anchor forward through the kernel vs through the plain "
+    log(f"[{tag}] anchor forward through the kernel vs through the plain "
         f"version: max|err| {fwd_err:.3e} (tol {ANCHOR_TOL:g} abs + "
         f"{ANCHOR_TOL:g} rel); {time.perf_counter() - t0:.1f} s")
-    check(fwd_excess <= ANCHOR_TOL, f"anchor: kernel forward disagrees with "
-          f"the plain forward (excess {fwd_excess})")
-    out["anchor"] = {"B": B, "S": S, "T": T, "dtype": "float32",
-                     "params": n_params, "decode_vs_forward_max_abs_err": dec_err,
-                     "kernel_vs_plain_forward_max_abs_err": fwd_err,
-                     "launches": anchor_launches}
+    check(fwd_excess <= ANCHOR_TOL, f"{tag} anchor: kernel forward disagrees "
+          f"with the plain forward (excess {fwd_excess})")
     del model, full, plain
     torch.cuda.empty_cache()
+    return {"B": B, "S": S, "T": T, "dtype": "float32", "params": n_params,
+            "decode_vs_forward_max_abs_err": dec_err,
+            "kernel_vs_plain_forward_max_abs_err": fwd_err,
+            "launches": launches}
 
-    # -- the served wave, bf16 (FULL) ------------------------------------
-    model = model_mod.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED))
-    prompts = [rng.integers(0, V, n).astype(np.int32) for n in SERVE_PROMPTS]
+
+def lm_wave(tag, model_mod, model, cfg, prompts, new, max_len, count):
+    """The served bf16 wave through ``ServeEngine``: the prompts in one
+    wave, ``new`` tokens each, greedy; ``count()`` (the launches of the
+    first wave, counted from 0) must be n_layers · ``new``; a second
+    greedy wave and two seeded temperature waves must repeat their
+    tokens.  Returns the engine, the requests' maker, the greedy tokens,
+    the left-padded batch and the wave's numbers."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    V = cfg.vocab_size
 
     def requests():
-        return [Request(p, max_new_tokens=SERVE_NEW) for p in prompts]
+        return [Request(p, max_new_tokens=new) for p in prompts]
 
     B = len(prompts)
-    engine = ServeEngine(model, cfg, batch_size=B, max_len=SERVE_MAX_LEN)
+    engine = ServeEngine(model, cfg, batch_size=B, max_len=max_len)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first = engine.generate(requests())
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    launches = fa_ops.flash_attention.launches
-    want = cfg.n_layers * SERVE_NEW
-    log(f"[lm] served wave ({B} prompts of {list(SERVE_PROMPTS)} tokens, "
-        f"{SERVE_NEW} new each, greedy) in {t_first:.2f} s; flash_attention "
+    launches = count()
+    want = cfg.n_layers * new
+    log(f"[{tag}] served wave ({B} prompts of {[len(p) for p in prompts]} "
+        f"tokens, {new} new each, greedy) in {t_first:.2f} s; the kernel "
         f"launched {launches} times (want {want})")
-    check(launches == want, f"served wave: {launches} flash_attention "
+    check(launches == want, f"{tag} served wave: {launches} kernel "
           f"launches, want {want}")
-    toks_1 = [r.out_tokens for r in first]
-    check(all(len(t) == SERVE_NEW and all(0 <= x < V for x in t)
-              for t in toks_1), "served wave: wrong token counts or ids")
+    toks = [r.out_tokens for r in first]
+    check(all(len(t) == new and all(0 <= x < V for x in t) for t in toks),
+          f"{tag} served wave: wrong token counts or ids")
     t0 = time.perf_counter()
     toks_2 = [r.out_tokens for r in engine.generate(requests())]
     torch.cuda.synchronize()
     t_wave = time.perf_counter() - t0
-    check(toks_2 == toks_1, "served wave: a second greedy run gave other "
-          "tokens")
+    check(toks_2 == toks, f"{tag} served wave: a second greedy run gave "
+          f"other tokens")
     sampled = []
     for _ in range(2):
-        hot = ServeEngine(model, cfg, batch_size=B, max_len=SERVE_MAX_LEN,
+        hot = ServeEngine(model, cfg, batch_size=B, max_len=max_len,
                           temperature=SERVE_TEMPERATURE, seed=0)
         sampled.append([r.out_tokens for r in hot.generate(requests())])
     check(sampled[0] == sampled[1] and all(
-        len(t) == SERVE_NEW and all(0 <= x < V for x in t)
-        for t in sampled[0]), "temperature 0.8, seed 0: runs differ")
-    log(f"[lm] second greedy wave: same tokens, {t_wave:.3f} s "
-        f"({B * SERVE_NEW / t_wave:.1f} tokens/s); temperature "
+        len(t) == new and all(0 <= x < V for x in t) for t in sampled[0]),
+        f"{tag}, temperature {SERVE_TEMPERATURE}, seed 0: runs differ")
+    log(f"[{tag}] second greedy wave: same tokens, {t_wave:.3f} s "
+        f"({B * new / t_wave:.1f} tokens/s); temperature "
         f"{SERVE_TEMPERATURE} seed 0 twice: same tokens "
-        f"({sum(a != b for x, y in zip(sampled[0], toks_1) for a, b in zip(x, y))}"
-        f" of {B * SERVE_NEW} differ from greedy); first tokens "
-        f"{[t[:4] for t in toks_1]}")
-
-    # where a wave's time goes: prefill and decode steps, each synced
-    S = max(SERVE_PROMPTS)
+        f"({sum(a != b for x, y in zip(sampled[0], toks) for a, b in zip(x, y))}"
+        f" of {B * new} differ from greedy); first tokens "
+        f"{[t[:4] for t in toks]}")
+    S = max(len(p) for p in prompts)
     batch = np.zeros((B, S), np.int64)
     for i, p in enumerate(prompts):
         batch[i, S - len(p):] = p
     batch = {"tokens": torch.from_numpy(batch).cuda()}
+    return engine, requests, toks, batch, {
+        "arch": cfg.arch_id, "dtype": cfg.dtype, "batch": B,
+        "prompts": [len(p) for p in prompts], "new_tokens": new,
+        "max_len": max_len, "launches": launches, "first_wave_s": t_first,
+        "wave_s": t_wave, "tokens_per_s": B * new / t_wave}
+
+
+def wave_times(tag, model_mod, model, engine, requests, batch, new, max_len,
+               kernel):
+    """Where a served wave's time goes: prefill (three runs, each synced),
+    each decode step with the engine's one read-back, and
+    ``torch.profiler`` windows over the decode steps and over one whole
+    wave; ``kernel`` names the port's kernel among the profiled ones."""
+    B, S = batch["tokens"].shape
+
+    def prefill():
+        cache = model_mod.init_cache(model.cfg, B, max_len)
+        logits, cache = model_mod.prefill(model, batch, cache)
+        return torch.argmax(logits, -1), cache
+
+    def decode(cur, cache, times):
+        pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        for _ in range(new - 1):
+            t0 = time.perf_counter()
+            logits, cache = model_mod.decode_step(model, cur, pos, cache)
+            cur = torch.argmax(logits, -1)
+            cur.cpu()                               # the engine's one sync
+            times.append((time.perf_counter() - t0) * 1e3)
+            pos = pos + 1
+
+    pre_ms, dec_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cur, cache = prefill()
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    decode(cur, cache, dec_ms)
+    cur, cache = prefill()
+    dec_kernels, dec_us = profile_kernels(lambda: decode(cur, cache, []))
+    del cache
+    kernels, window_us = profile_kernels(lambda: engine.generate(requests()))
+    k_us = sum(us for name, us in kernels.items() if kernel in name)
+    dec_k_us = sum(us for name, us in dec_kernels.items() if kernel in name)
+    log(f"[{tag}] prefill {statistics.median(pre_ms):.2f} ms (of {pre_ms}); "
+        f"decode step median {statistics.median(dec_ms):.3f} ms (min "
+        f"{min(dec_ms):.3f}, max {max(dec_ms):.3f})")
+    log(f"[{tag}] profiled {new - 1} decode steps: device "
+        f"{sum(dec_kernels.values()) / (new - 1) / 1e3:.3f} ms a step, "
+        f"{kernel} {dec_k_us / (new - 1) / 1e3:.3f} ms a step; "
+        + describe_profile(dec_kernels, dec_us, top=6))
+    log(f"[{tag}] profiled one wave: {kernel} kernels {k_us:.1f} us; "
+        + describe_profile(kernels, window_us, top=8))
+    return {
+        "prefill_ms": statistics.median(pre_ms), "prefill_ms_all": pre_ms,
+        "decode_step_ms_median": statistics.median(dec_ms),
+        "decode_step_ms_all": dec_ms,
+        "profiled_wave_us": window_us,
+        "profiled_device_busy_share": sum(kernels.values()) / window_us,
+        f"profiled_{kernel}_us": k_us,
+        "profiled_decode_us": dec_us,
+        "profiled_decode_busy_share": sum(dec_kernels.values()) / dec_us,
+        "profiled_decode_device_us": sum(dec_kernels.values()),
+        f"profiled_decode_{kernel}_us": dec_k_us,
+        "profiled_kernel_us": dict(sorted(kernels.items(),
+                                          key=lambda kv: -kv[1])[:12])}
+
+
+def lm_phase(fa_ops):
+    """The LM serving path of gemma2-2b at full width: the f32 anchor
+    (forward == teacher-forced prefill + decode, kernel == plain), then
+    the served bf16 wave through ``ServeEngine``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as model_mod
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(SEED)
+    count = lambda: fa_ops.flash_attention.launches  # noqa: E731
+    out = {"anchor": lm_anchor("lm", model_mod, cfg, ANCHOR, rng, count,
+                               lambda: plain_attention(attn_mod))}
+
+    model = model_mod.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+    engine, requests, toks, batch, serve = lm_wave(
+        "lm", model_mod, model, cfg, prompts, SERVE_NEW, SERVE_MAX_LEN, count)
 
     # the served wave held to the plain version: the logits of prefill
     # and of the decode steps teacher-forced on the greedy tokens, and
     # the greedy tokens; wrong decode attentions must fail the logits
     # check
-    toks_t = torch.tensor(toks_1, device="cuda")
+    toks_t = torch.tensor(toks, device="cuda")
     logits_k = served_logits(model_mod, model, batch, toks_t, SERVE_MAX_LEN)
-    n0 = fa_ops.flash_attention.launches
+    n0 = count()
     with plain_attention(attn_mod):
         logits_p = served_logits(model_mod, model, batch, toks_t,
                                  SERVE_MAX_LEN)
-    check(fa_ops.flash_attention.launches == n0,
-          "the plain served wave launched the kernel")
+    check(count() == n0, "the plain served wave launched the kernel")
     check(torch.equal(logits_k.argmax(-1), toks_t), "served wave: the "
           "teacher-forced kernel logits do not give the engine's tokens")
     top2 = logits_p.topk(2, -1).values
@@ -1513,69 +1613,355 @@ def lm_phase(fa_ops):
                                      in serve_controls.items()))
     del logits_k, logits_p, top2, same
     torch.cuda.empty_cache()
-
-    def prefill():
-        cache = model_mod.init_cache(cfg, B, SERVE_MAX_LEN)
-        logits, cache = model_mod.prefill(model, batch, cache)
-        return torch.argmax(logits, -1), cache
-
-    def decode(cur, cache, times):
-        pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
-        for _ in range(SERVE_NEW - 1):
-            t0 = time.perf_counter()
-            logits, cache = model_mod.decode_step(model, cur, pos, cache)
-            cur = torch.argmax(logits, -1)
-            cur.cpu()                               # the engine's one sync
-            times.append((time.perf_counter() - t0) * 1e3)
-            pos = pos + 1
-
-    pre_ms, dec_ms = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cur, cache = prefill()
-        torch.cuda.synchronize()
-        pre_ms.append((time.perf_counter() - t0) * 1e3)
-    decode(cur, cache, dec_ms)
-    cur, cache = prefill()
-    dec_kernels, dec_us = profile_kernels(lambda: decode(cur, cache, []))
-    del cache
-    kernels, window_us = profile_kernels(lambda: engine.generate(requests()))
-    busy = sum(kernels.values()) / window_us
-    dec_busy = sum(dec_kernels.values()) / dec_us
-    fa_us = sum(us for name, us in kernels.items() if "flash_attention" in name)
-    dec_fa_us = sum(us for name, us in dec_kernels.items()
-                    if "flash_attention" in name)
-    log(f"[lm] prefill {statistics.median(pre_ms):.2f} ms (of {pre_ms}); "
-        f"decode step median {statistics.median(dec_ms):.3f} ms (min "
-        f"{min(dec_ms):.3f}, max {max(dec_ms):.3f})")
-    log(f"[lm] profiled {SERVE_NEW - 1} decode steps: device "
-        f"{sum(dec_kernels.values()) / (SERVE_NEW - 1) / 1e3:.3f} ms a step, "
-        f"flash_attention {dec_fa_us / (SERVE_NEW - 1) / 1e3:.3f} ms a step; "
-        + describe_profile(dec_kernels, dec_us, top=6))
-    log(f"[lm] profiled one wave: flash_attention kernels {fa_us:.1f} us; "
-        + describe_profile(kernels, window_us, top=8))
-    out["serve"] = {
-        "arch": LM_ARCH, "dtype": cfg.dtype, "batch": B,
-        "prompts": list(SERVE_PROMPTS), "new_tokens": SERVE_NEW,
-        "max_len": SERVE_MAX_LEN, "launches": launches,
-        "first_wave_s": t_first, "wave_s": t_wave,
+    serve.update({
         "kernel_vs_plain_logits_max_abs_err": serve_err,
         "plain_greedy_equal": [n_same, n_steps],
         "plain_top2_margin_min": margin,
-        "wrong_decode_logits_max_abs_err": serve_controls,
-        "tokens_per_s": B * SERVE_NEW / t_wave,
-        "prefill_ms": statistics.median(pre_ms), "prefill_ms_all": pre_ms,
-        "decode_step_ms_median": statistics.median(dec_ms),
-        "decode_step_ms_all": dec_ms,
-        "profiled_wave_us": window_us, "profiled_device_busy_share": busy,
-        "profiled_flash_attention_us": fa_us,
-        "profiled_decode_us": dec_us, "profiled_decode_busy_share": dec_busy,
-        "profiled_decode_device_us": sum(dec_kernels.values()),
-        "profiled_decode_flash_attention_us": dec_fa_us,
-        "profiled_kernel_us": dict(sorted(kernels.items(),
-                                          key=lambda kv: -kv[1])[:12])}
-    del model
+        "wrong_decode_logits_max_abs_err": serve_controls})
+    serve.update(wave_times("lm", model_mod, model, engine, requests, batch,
+                            SERVE_NEW, SERVE_MAX_LEN, "flash_attention"))
+    out["serve"] = serve
+    del model, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11, falcon-mamba-7b served at full width, and ssm_scan
+# ---------------------------------------------------------------------------
+SSM_ARCH = "falcon-mamba-7b"
+# exponentials: the SFU's 16 a clock on each of 132 SMs at the 1.98 GHz
+# of the f32 peak (67 TFLOP/s = 132 x 128 x 2 x 1.98e9)
+SFU_PER_S = 132 * 16 * 1.98e9
+# kernel vs plain: the reference's f32 tolerance (tests/test_kernels.py:
+# 18-19) for every input dtype, times max|y| and times each output row's
+# max (``ssm_error``).  Both sides convert the same bf16 values exactly
+# to f32 and do all their work in f32, so the reference's bf16 tolerance
+# (3e-2, for its bf16 kernel against an f32 oracle) covers nothing here
+SSM_TOL = 2e-5
+SSM_RANK = 256                   # falcon-mamba's dt_rank: B_t, C_t sit at
+#                                  stride R + 2N in the x_proj output
+# name, B, S, I, N, dtype of x/B_t/C_t, h0 (None: absent, as in the
+# cache-free forward; "zero": the engine's fresh cache; "random"), dt
+# ("model": softplus of the init's dt_bias, log-uniform dt in [1e-3,
+# 1e-1], plus a normal at 0.5; "large": softplus of a standard normal,
+# mean ~0.8, decays far from 1), A ("model": -(1..N) on every channel,
+# as the init's A_log = log(1..N); "random": -exp(normal)).  The first
+# four are the served shapes (falcon-mamba-7b FULL: I=8192, N=16; B=8
+# prompts padded to 2048, decode one step, a 4096-token forward)
+SSM_CASES = (
+    ("prefill bf16 h0 zero", 8, 2048, 8192, 16, _BF16, "zero", "model", "model"),
+    ("decode bf16", 8, 1, 8192, 16, _BF16, "random", "model", "model"),
+    ("prefill bf16 h0 random", 8, 2048, 8192, 16, _BF16, "random", "model",
+     "model"),
+    ("forward B=4 S=4096 bf16", 4, 4096, 8192, 16, _BF16, None, "model",
+     "model"),
+    ("prefill bf16 large dt", 8, 2048, 8192, 16, _BF16, "random", "large",
+     "random"),
+    ("I=100 N=4 S=33 f32", 1, 33, 100, 4, _F32, "random", "model", "random"),
+    ("I=100 N=8 S=33 f32 large dt", 1, 33, 100, 8, _F32, "random", "large",
+     "model"),
+    ("I=100 N=16 S=33 f32 no h0", 1, 33, 100, 16, _F32, None, "model", "model"),
+    ("I=100 N=16 S=33 f32 large dt", 1, 33, 100, 16, _F32, "zero", "large",
+     "random"),
+    ("I=100 N=4 S=1 f32", 1, 1, 100, 4, _F32, "random", "large", "random"),
+    ("I=100 N=8 S=1 f32", 1, 1, 100, 8, _F32, "random", "model", "model"),
+    ("I=100 N=16 S=1 f32", 1, 1, 100, 16, _F32, "random", "model", "model"),
+)
+SSM_MAIN = SSM_CASES[:2]
+# the served wave: 8 short-chat prompts left-padded to 2048, 32 new
+# tokens each (greedy, and T=0.8 seed 0); the state cache does not grow
+SSM_PROMPTS = (2048, 1536, 1024, 768, 512, 256, 64, 17)
+SSM_NEW = 32
+SSM_MAX_LEN = 2048 + 32
+# the served wave's logits (prefill and 31 teacher-forced decode steps,
+# bf16) through the kernel against through the plain version: the worst
+# (request, step) relative L2 distance |l - l_plain| / |l_plain|.  Set
+# before any chip reading at ~4x what the CPU shows when every scan's y
+# and h_final of the same model are moved by 1e-6 relative noise: the
+# kernel's scans sit ~1e-6 from the plain ones, and bf16 rounding flips
+# grow with depth (64 bf16 layers at d_model 256, prompts of 2048, 1024,
+# 64 and 17 tokens, 8 decode steps: 0.037; 0.034-0.038 at d_model 256
+# and 1024 over 256 tokens).  The decode scans that must fail it, which
+# read 0.40 and 0.58 in that CPU setting: the carried state ignored, and
+# another request's state
+SSM_SERVE_TOL = 0.15
+SSM_SERVE_CONTROLS = {
+    "state ignored": lambda kw: dict(kw, h0=None),
+    "another request's state": lambda kw: dict(kw, h0=kw["h0"].roll(1, 0)),
+}
+# the full-width f32 anchor: teacher-forced prefill + decode = forward,
+# the reference's own check and tolerance (tests/test_decode_consistency.py
+# :20-41)
+SSM_ANCHOR = dict(B=2, S=1024, T=4)
+
+
+def ssm_inputs(case, dev="cuda"):
+    """Keyword arguments of one ``SSM_CASES`` scan, drawn on ``dev`` from a
+    generator seeded with the case's place in ``SSM_CASES`` (by name, so a
+    case cut to fewer channels draws from the same seed).  B_t and C_t
+    are slices of one (B, S, R + 2N) tensor, as the model passes them."""
+    name, B, S, I, N, dtype, h0, dt_kind, a_kind = case
+    seed = SEED + [c[0] for c in SSM_CASES].index(name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = normal(B, S, I).to(dtype)
+    if dt_kind == "model":
+        u = torch.rand(I, generator=gen, device=dev)
+        dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+        dt = F.softplus(torch.log(torch.expm1(dt0)) + 0.5 * normal(B, S, I))
+    else:
+        dt = F.softplus(normal(B, S, I))
+    xdb = normal(B, S, SSM_RANK + 2 * N).to(dtype)
+    if a_kind == "model":
+        A = -torch.arange(1, N + 1, dtype=_F32, device=dev).expand(I, N)
+    else:
+        A = -torch.exp(normal(I, N))
+    return {"x": x, "dt": dt, "Bc": xdb[..., SSM_RANK:SSM_RANK + N],
+            "Cc": xdb[..., SSM_RANK + N:], "A": A.contiguous(),
+            "h0": None if h0 is None else (
+                torch.zeros(B, I, N, device=dev) if h0 == "zero"
+                else normal(B, I, N))}
+
+
+def ssm_error(y, h, y_ref, h_ref):
+    """The scan check of (y, h_final) against the plain version's: max|y -
+    y_ref|, max|y_ref|, max|h - h_ref|, max|h_ref| and the worst row's
+    ratio of its max|diff| over ``SSM_TOL`` times its own max|ref|, over
+    the rows of y (one step of one sequence, all channels) and of h_final
+    (one sequence).  The check passes when both maxima are within
+    ``SSM_TOL`` of max|ref| and the ratio is at most 1."""
+    dy, my = (y - y_ref).abs().amax(-1), y_ref.abs().amax(-1)
+    dh = (h - h_ref).abs().flatten(1).amax(-1)
+    mh = h_ref.abs().flatten(1).amax(-1)
+    ratio = max(float(torch.where(d > 0, d / (SSM_TOL * m),
+                                  torch.zeros_like(d)).max())
+                for d, m in ((dy, my), (dh, mh)))
+    return (float(dy.max()), float(my.max()), float(dh.max()),
+            float(mh.max()), ratio)
+
+
+def ssm_passes(err_y, scale_y, err_h, scale_h, ratio) -> bool:
+    """Whether ``ssm_error``'s numbers pass the check."""
+    return (err_y <= SSM_TOL * scale_y and err_h <= SSM_TOL * scale_h
+            and ratio <= 1.0)
+
+
+def ssm_controls(kw):
+    """The scans that miss what the check must see, as changed keyword
+    arguments: the carried state ignored (where there is one), C_t taken
+    from step t-1 (zeros at step 0), the last step dropped (dt = 0 there:
+    the state stays, no input).  The check must fail each."""
+    out = {}
+    if kw["h0"] is not None and bool(kw["h0"].any()):
+        out["h0 ignored"] = dict(kw, h0=None)
+    prev = torch.zeros_like(kw["Cc"])
+    prev[:, 1:] = kw["Cc"][:, :-1]
+    out["C_t from step t-1"] = dict(kw, Cc=prev)
+    dt = kw["dt"].clone()
+    dt[:, -1] = 0.0
+    out["last step dropped"] = dict(kw, dt=dt)
+    return out
+
+
+def ssm_bound_ms(kw):
+    """Least time for one call: x, dt, B_t, C_t, A and h0 read once, y and
+    h_final written once, against the B·S·I·N exponentials at the SFU rate
+    and ~6 f32 flops per (b, t, i, n) (dt·A, the decay, the input, the
+    output) at the f32 rate; the larger, with the one that bounds."""
+    x, Bc = kw["x"], kw["Bc"]
+    B, S, I = x.shape
+    N = Bc.shape[-1]
+    nbytes = (x.numel() * x.element_size() + 4 * kw["dt"].numel()
+              + 2 * B * S * N * Bc.element_size() + 4 * kw["A"].numel()
+              + (0 if kw["h0"] is None else 4 * kw["h0"].numel())
+              + 4 * B * S * I + 4 * B * I * N)
+    n_exp = B * S * I * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n_exp / SFU_PER_S, 6.0 * n_exp / F32_FLOPS_PER_S) * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, nbytes, n_exp
+
+
+def ssm_kernel_phase():
+    """ssm_scan against its plain version at the served shapes and at edge
+    shapes (each launched twice: the bytes must not move), the scans that
+    must fail (``ssm_controls``), then the times at the served prefill and
+    decode shapes."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+    max_abs_err, by_case = 0.0, []
+    for case in SSM_CASES:
+        name = case[0]
+        kw = ssm_inputs(case)
+        y, h = ssm_ops.selective_scan(**kw)
+        y2, h2 = ssm_ops.selective_scan(**kw)
+        y_ref, h_ref = selective_scan_ref(**kw)
+        torch.cuda.synchronize()
+        check(y.shape == y_ref.shape and h.shape == h_ref.shape
+              and y.dtype == h.dtype == _F32 and bool(torch.isfinite(y).all())
+              and bool(torch.isfinite(h).all()), f"{name}: bad output")
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"{name}: two launches gave different bytes")
+        err_y, scale_y, err_h, scale_h, ratio = ssm_error(y, h, y_ref, h_ref)
+        log(f"[kernel] ssm_scan {name:30s} max|err| y {err_y:.3e} / max|y| "
+            f"{scale_y:.3e}, h_final {err_h:.3e} / {scale_h:.3e} (tol "
+            f"{SSM_TOL:g} x max); worst row {ratio:.3f} of its limit; "
+            f"relaunch bitwise equal")
+        check(ssm_passes(err_y, scale_y, err_h, scale_h, ratio),
+              f"{name}: kernel disagrees with the plain version: y {err_y}, "
+              f"h {err_h}, worst row {ratio} of its limit")
+        controls = {}
+        for what, wrong_kw in ssm_controls(kw).items():
+            wy, wh = ssm_ops.selective_scan(**wrong_kw)
+            w = ssm_error(wy, wh, y_ref, h_ref)
+            controls[what] = {"max_abs_err_y": w[0], "max_abs_err_h": w[2],
+                              "worst_row_ratio": w[4]}
+            check(not ssm_passes(*w), f"{name}: a scan with {what} passed "
+                  f"the check")
+            del wy, wh, wrong_kw
+        log(f"[kernel] ssm_scan {name:30s} must fail and does: "
+            + "; ".join(f"{what} worst row {c['worst_row_ratio']:.3g} of its "
+                        f"limit" for what, c in controls.items()))
+        by_case.append({"name": name, "max_abs_err_y": err_y,
+                        "max_abs_y": scale_y, "max_abs_err_h": err_h,
+                        "max_abs_h": scale_h, "worst_row_ratio": ratio,
+                        "controls": controls})
+        if case in SSM_MAIN:
+            max_abs_err = max(max_abs_err, err_y, err_h)
+        del kw, y, h, y2, h2, y_ref, h_ref
+    torch.cuda.synchronize()
+
+    rows = []
+    for case in SSM_MAIN:
+        name, B, S, I, N, dtype = case[:6]
+        kw = ssm_inputs(case)
+        reps, inner = (5, 5) if S > 1 else (20, 20)
+        k_ms = time_ms(lambda: ssm_ops.selective_scan(**kw), reps=reps,
+                       inner=inner)
+        g_ms = graph_ms(lambda: ssm_ops.selective_scan(**kw), reps=reps,
+                        inner=inner)
+        p_ms = time_ms(lambda: selective_scan_ref(**kw), reps=3 if S > 1
+                       else reps, inner=1 if S > 1 else inner)
+        (b_ms, b_by), nbytes, n_exp = ssm_bound_ms(kw)
+        rows.append({"shape": {"name": name, "B": B, "S": S, "I": I, "N": N,
+                               "dtype": "bf16", "h0": case[6]},
+                     "kernel_ms": k_ms, "kernel_graph_ms": g_ms,
+                     "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "exponentials": n_exp})
+        log(f"[time] ssm_scan {name:20s} kernel {k_ms * 1e3:10.2f} us (graph "
+            f"{g_ms * 1e3:10.2f} us)  plain {p_ms * 1e3:12.2f} us  library - "
+            f"(no single PyTorch call)  bound {b_ms * 1e3:9.3f} us ({b_by}; "
+            f"bytes {nbytes / HBM_BYTES_PER_S * 1e6:.3f} us, exponentials "
+            f"{n_exp / SFU_PER_S * 1e6:.3f} us); "
+            f"{nbytes / (g_ms * 1e-3) / 1e12:.3f} TB/s, "
+            f"{n_exp / (g_ms * 1e-3) / 1e12:.3f} T exp/s")
+        del kw
+    torch.cuda.synchronize()
+    return rows, max_abs_err, by_case
+
+
+@contextlib.contextmanager
+def plain_scan(ssm_mod, decode_change=None):
+    """Send the model's selective scans through the plain version on the
+    card, for the comparison only: the port itself has no such switch.
+    ``decode_change`` (keyword arguments -> keyword arguments), if given,
+    alters the decode scans (one step), to make a wrong scan."""
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+    def plain(x, dt, Bc, Cc, A, *, h0=None):
+        kw = dict(x=x, dt=dt, Bc=Bc, Cc=Cc, A=A, h0=h0)
+        if decode_change is not None and x.shape[1] == 1:
+            kw = decode_change(kw)
+        return selective_scan_ref(**kw)
+
+    kernel_ops = ssm_mod.ssm_ops
+    ssm_mod.ssm_ops = types.SimpleNamespace(selective_scan=plain)
+    try:
+        yield
+    finally:
+        ssm_mod.ssm_ops = kernel_ops
+
+
+def logits_distance(a, b):
+    """Worst (request, step) relative L2 distance |a - b| / |b| of logits
+    (B, T, V), and max|a - b|."""
+    rel = (a - b).norm(dim=-1) / b.norm(dim=-1)
+    return float(rel.max()), float((a - b).abs().max())
+
+
+def mamba_phase(ssm_ops):
+    """The serving path of falcon-mamba-7b at full width: the f32 anchor
+    (forward == teacher-forced prefill + decode, kernel == plain), then
+    the served bf16 wave through ``ServeEngine``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import ssm as ssm_mod
+    cfg = get_config(SSM_ARCH)
+    rng = np.random.default_rng(SEED)
+    count = lambda: ssm_ops.selective_scan.launches  # noqa: E731
+    out = {"anchor": lm_anchor("mamba", model_mod, cfg, SSM_ANCHOR, rng,
+                               count, lambda: plain_scan(ssm_mod))}
+
+    model = model_mod.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SSM_PROMPTS]
+    engine, requests, toks, batch, serve = lm_wave(
+        "mamba", model_mod, model, cfg, prompts, SSM_NEW, SSM_MAX_LEN, count)
+
+    # the served wave held to the plain version: the logits of prefill
+    # and of the decode steps teacher-forced on the greedy tokens; wrong
+    # decode scans must fail the check
+    toks_t = torch.tensor(toks, device="cuda")
+    logits_k = served_logits(model_mod, model, batch, toks_t, SSM_MAX_LEN)
+    n0 = count()
+    with plain_scan(ssm_mod):
+        logits_p = served_logits(model_mod, model, batch, toks_t, SSM_MAX_LEN)
+    check(count() == n0, "the plain served wave launched the kernel")
+    check(torch.equal(logits_k.argmax(-1), toks_t), "mamba served wave: the "
+          "teacher-forced kernel logits do not give the engine's tokens")
+    top2 = logits_p.topk(2, -1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    n_same = int((logits_p.argmax(-1) == toks_t).sum())
+    serve_rel, serve_err = logits_distance(logits_k, logits_p)
+    log(f"[mamba] served wave through the kernel vs through the plain "
+        f"version (bf16): logits of prefill + {SSM_NEW - 1} decode steps, "
+        f"worst relative L2 {serve_rel:.3e} (limit {SSM_SERVE_TOL:g}), "
+        f"max|err| {serve_err:.3e} (max|logit| "
+        f"{float(logits_p.abs().max()):.2f}); plain greedy tokens equal at "
+        f"{n_same} of {toks_t.numel()} steps (least plain top-2 margin "
+        f"{margin:.3e}; reported, not checked: bf16 rounding moves near "
+        f"ties)")
+    check(serve_rel <= SSM_SERVE_TOL, f"mamba served wave: kernel logits "
+          f"disagree with the plain version's: {serve_rel}")
+    serve_controls = {}
+    for what, change in SSM_SERVE_CONTROLS.items():
+        with plain_scan(ssm_mod, change):
+            wrong = served_logits(model_mod, model, batch, toks_t,
+                                  SSM_MAX_LEN)
+        serve_controls[what] = logits_distance(wrong, logits_p)[0]
+        check(serve_controls[what] > SSM_SERVE_TOL, f"mamba served wave: a "
+              f"decode scan with {what} passed the logits check")
+        del wrong
+    log("[mamba] served wave, wrong decode scans must fail the logits check "
+        "and do: " + "; ".join(f"{what} worst relative L2 {e:.3e}"
+                               for what, e in serve_controls.items()))
+    del logits_k, logits_p, top2
+    torch.cuda.empty_cache()
+    serve.update({
+        "kernel_vs_plain_logits_worst_rel_l2": serve_rel,
+        "kernel_vs_plain_logits_max_abs_err": serve_err,
+        "plain_greedy_equal": [n_same, toks_t.numel()],
+        "plain_top2_margin_min": margin,
+        "wrong_decode_logits_worst_rel_l2": serve_controls})
+    serve.update(wave_times("mamba", model_mod, model, engine, requests,
+                            batch, SSM_NEW, SSM_MAX_LEN, "ssm_scan"))
+    out["serve"] = serve
+    del model, engine
     torch.cuda.empty_cache()
     return out
 
@@ -1598,6 +1984,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.prox_step import kernel as prox_kernel
     from repro_torch.kernels.prox_step import ops as prox_ops
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.serve.mtl import FactoredModel, MTLServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1612,7 +2000,8 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------
     build_all({"mtl_score": score_kernel, "mtl_grad": grad_kernel,
-               "prox_step": prox_kernel, "flash_attention": fa_kernel})
+               "prox_step": prox_kernel, "flash_attention": fa_kernel,
+               "ssm_scan": ssm_kernel})
     torch.cuda.synchronize()
 
     # -- 3. kernel vs plain ------------------------------------------------
@@ -1834,6 +2223,10 @@ def main() -> int:
     fa_rows, fa_err, fa_cases = fa_kernel_phase()
     lm = lm_phase(fa_ops)
 
+    # -- 11. falcon-mamba-7b served, and ssm_scan ----------------------------
+    ssm_rows, ssm_err, ssm_cases = ssm_kernel_phase()
+    mamba = mamba_phase(ssm_ops)
+
     # -- results -----------------------------------------------------------
     main_row = next(b_ for b_ in by_batch
                     if b_["B"] == WAVE and b_["code_dtype"] == "f32")
@@ -1913,13 +2306,32 @@ def main() -> int:
         "shape": fa_rows[0]["shape"],
         "by_shape": fa_rows,
         "cases": fa_cases,
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src_torch/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:63",
+        "launches": mamba["serve"]["launches"],
+        "launches_by_path": {"mamba served wave": mamba["serve"]["launches"],
+                             "mamba f32 anchor": mamba["anchor"]["launches"]},
+        "max_abs_err": ssm_err,
+        "ms": ssm_rows[0]["kernel_ms"],
+        "kernel_ms": ssm_rows[0]["kernel_ms"],
+        "kernel_graph_ms": ssm_rows[0]["kernel_graph_ms"],
+        "plain_ms": ssm_rows[0]["plain_ms"],
+        "bound_ms": ssm_rows[0]["bound_ms"],
+        "bound_by": ssm_rows[0]["bound_by"],
+        "library_ms": None,
+        "shape": ssm_rows[0]["shape"],
+        "by_shape": ssm_rows,
+        "cases": ssm_cases,
     }], "serve": {"requests_per_call": N_REQUESTS, "wave": WAVE,
                   "first_call_s": t_score, "p50_call_s": p50,
                   "max_call_s": worst, "requests_per_s_p50": N_REQUESTS / p50,
                   "profiled_device_busy_share": busy if kernels else None,
                   "profiled_kernel_us": kernels},
         "solver": {"A": a, "B": b, "C": c, "D": d}, "sampler": sampler,
-        "lm": lm}
+        "lm": lm, "mamba": mamba}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,20 @@
 """Config registry of the port: the dense, non-MoE, non-MLA language
-models, which run through exactly the port's LM modules.
+models and the Mamba-1 model, which run through exactly the port's LM
+modules.
 
 The reference registers ten architectures (``repro.configs``); the port
-registers the four whose serving path it has ported.  Asking for any of
-the other six raises :class:`NotImplementedError` naming the ROADMAP item
+registers the five whose serving path it has ported.  Asking for any of
+the other five raises :class:`NotImplementedError` naming the ROADMAP item
 that brings it.
 """
 from __future__ import annotations
 
-from . import gemma2_2b, gemma_7b, starcoder2_3b, starcoder2_7b
+from . import (falcon_mamba_7b, gemma2_2b, gemma_7b, starcoder2_3b,
+               starcoder2_7b)
 from .base import INPUT_SHAPES, InputShape, ModelConfig
 
 _MODULES = {
+    "falcon-mamba-7b": falcon_mamba_7b,
     "gemma2-2b": gemma2_2b,
     "gemma-7b": gemma_7b,
     "starcoder2-3b": starcoder2_3b,
@@ -21,8 +24,6 @@ _MODULES = {
 # the reference's other architectures, and the ROADMAP item that ports
 # the modules each one needs
 _NOT_PORTED = {
-    "falcon-mamba-7b": "Queue 1 item 11b (mamba-1 layers, the ssm_scan "
-                       "kernel)",
     "zamba2-7b": "Queue 1 item 11c (hybrid: mamba-2 and the shared "
                  "attention block)",
     "granite-moe-3b-a800m": "Queue 1 item 11c (MoE layers)",

@@ -6,7 +6,12 @@ imports the reference: the same fields, defaults and properties, and a
 config built in one package reads the same in the other.  Fields that
 only the reference's JAX programs read (``remat``, ``scan_layers``,
 ``bf16_grad_boundary``, the MoE routing options) are kept so the schema
-stays one; the port's serving path ignores them.
+stays one; the port's serving path ignores them.  ``ssm_chunk`` and
+``attn_impl`` choose no route for SSM layers in the port: in the
+reference they pick an XLA memory strategy (the chunked or the
+associative scan) or its Pallas kernel, while the port runs every
+selective scan through one function,
+:func:`repro_torch.kernels.ssm_scan.selective_scan`.
 """
 from __future__ import annotations
 

@@ -108,10 +108,15 @@ def _fill(param: torch.Tensor, a, name: str) -> None:
 
 def _fill_layer(layer, tree, j: int, name: str) -> None:
     """Layer ``j`` of a stacked reference layer tree into ``layer``."""
-    for norm in ("norm1", "norm2"):
+    mamba = "mamba" in tree
+    for norm in ("norm1",) if mamba else ("norm1", "norm2"):
         for leaf, a in tree[norm].items():
             _fill(getattr(getattr(layer, norm), leaf), a[j],
                   f"{name}.{norm}.{leaf}")
+    if mamba:
+        for leaf, a in tree["mamba"].items():
+            _fill(getattr(layer.mamba, leaf), a[j], f"{name}.mamba.{leaf}")
+        return
     for w in ("wq", "wk", "wv", "wo"):
         _fill(getattr(layer.attn, w), tree["attn"][w][j], f"{name}.attn.{w}")
     for w, a in tree["mlp"].items():
@@ -124,8 +129,10 @@ def lm_params_from_numpy(tree: Dict[str, object], cfg: ModelConfig,
     (default: the card) holding the reference's parameters
     (``jax.tree.map(np.asarray, params)``): ``embed.table``,
     ``final_norm``, ``head.w`` when untied, and per segment the layer
-    trees stacked on a leading layer axis.  Weights keep the reference's
-    ``(d_in, d_out)`` layout and dtype; super-block ``j``'s entry
+    trees stacked on a leading layer axis (a ``"mamba"`` segment's
+    ``norm1`` and ``mamba`` leaves, index ``j``, go into layer ``j``).
+    Weights keep the reference's ``(d_in, d_out)`` layout and dtype, bit
+    for bit; super-block ``j``'s entry
     ``name`` of an ``attn_pattern`` segment becomes layer
     ``len(pattern) * j + index(name)``."""
     model = LM(cfg, resolve_device(device))
@@ -136,7 +143,7 @@ def lm_params_from_numpy(tree: Dict[str, object], cfg: ModelConfig,
         _fill(model.head, tree["head"]["w"], "head.w")
     first = 0
     for seg, seg_tree in zip(build_plan(cfg), tree["segments"]):
-        if seg.kind == "attn":
+        if seg.kind in ("attn", "mamba"):
             for j in range(seg.count):
                 _fill_layer(model.layers[first + j], seg_tree, j,
                             f"layer {first + j}")

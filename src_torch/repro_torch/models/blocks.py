@@ -7,12 +7,13 @@ into an ``nn.ModuleList`` of layers in the reference's order, and runs
 them with a Python loop (no scan; ``cfg.remat`` and ``cfg.scan_layers``
 only shape the reference's compiled programs and are ignored here).
 
-Ported segments: ``"attn"`` (uniform attention layers) and
+Ported segments: ``"attn"`` (uniform attention layers),
 ``"attn_pattern"`` (super-blocks cycling ``cfg.attn_pattern``, gemma2's
-local/global pairs, layers in pattern order within each super-block).
-The reference's ``"mamba"``, ``"shared_attn"`` and ``"xattn"`` segments
-and MoE layers are not ported: their families raise
-:class:`NotImplementedError` in :mod:`repro_torch.models.model`.
+local/global pairs, layers in pattern order within each super-block) and
+``"mamba"`` (Mamba-1 layers, falcon-mamba).  The reference's
+``"shared_attn"`` and ``"xattn"`` segments and MoE layers are not
+ported: their families raise :class:`NotImplementedError` in
+:mod:`repro_torch.models.model`.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..configs.base import ModelConfig
 from .attention import Attention, init_kv_cache
 from .common import Norm
 from .mlp import MLP
+from .ssm import Mamba1, init_ssm_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +38,11 @@ class Segment:
 
 
 def build_plan(cfg: ModelConfig) -> List[Segment]:
-    """The reference's segment plan for a dense config (the families and
-    MoE that it does not cover are refused by
+    """The reference's segment plan for a dense or Mamba config (the
+    families and MoE that it does not cover are refused by
     :func:`repro_torch.models.model._check_ported` first)."""
+    if cfg.family == "ssm":
+        return [Segment("mamba", cfg.n_layers)]
     if cfg.attn_pattern:
         plen = len(cfg.attn_pattern)
         if cfg.n_layers % plen:
@@ -94,8 +98,48 @@ class AttnLayer(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+class MambaLayer(nn.Module):
+    """Pre-norm Mamba-1 residual layer (the reference's ``_mamba_layer``
+    without the training-only gradient cast).  Positions are not read.
+    With a cache ``{"state", "conv"}`` the scan and the conv continue
+    from it, and both are written in place (the serving engine owns
+    them, as it owns the attention layers' ring buffers)."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        self.norm1 = Norm(cfg, cfg.d_model, device)
+        self.mamba = Mamba1(cfg, device)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.norm1.reset_parameters()
+        self.mamba.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        h = self.norm1(x)
+        if cache is None:
+            out, _, _ = self.mamba(h)
+        else:
+            out, state, conv = self.mamba(h, cache["state"], cache["conv"])
+            cache["state"].copy_(state)
+            cache["conv"].copy_(conv)
+        return x + out
+
+
+def segment_layers(cfg: ModelConfig, seg: Segment,
+                   device: torch.device) -> List[nn.Module]:
+    """The layers of one segment, in the reference's order."""
+    if seg.kind == "mamba":
+        return [MambaLayer(cfg, device) for _ in range(seg.count)]
+    return [AttnLayer(cfg, w, device) for w in segment_windows(cfg, seg)]
+
+
 def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int,
                        max_len: int, device: torch.device) -> List[dict]:
-    """The decode caches of one segment's layers, in layer order."""
+    """The decode caches of one segment's layers, in layer order: a KV
+    ring buffer per attention layer, ``{"state", "conv"}`` zeros per
+    Mamba layer."""
+    if seg.kind == "mamba":
+        return [init_ssm_state(cfg, batch, device) for _ in range(seg.count)]
     return [init_kv_cache(cfg, batch, max_len, w, device)
             for w in segment_windows(cfg, seg)]

@@ -1,6 +1,7 @@
-"""Model-level API of the dense LMs: init, forward, cache, prefill, decode.
+"""Model-level API of the LMs: init, forward, cache, prefill, decode.
 
-Port of ``repro.models.model`` for the decoder-only dense family.  The
+Port of ``repro.models.model`` for the decoder-only dense family and
+Mamba-1 (falcon-mamba).  The
 reference's params are a pytree beside a static config; the port's model
 is an :class:`LM` module that holds its config, and the entry points take
 it where the reference takes ``(params, cfg)``:
@@ -12,7 +13,10 @@ it where the reference takes ``(params, cfg)``:
   decode_step(model, token, pos, cache) -> (logits (B, V), cache)
 
 ``batch`` is ``{"tokens": (B, S) int}``.  Positions are ``0..S-1`` for
-every row, padding included, as in the reference.  Encoder-decoder,
+every row, padding included, as in the reference; Mamba layers do not
+read them.  A cache holds one dict per layer: a KV ring buffer for an
+attention layer, the SSM state and conv window for a Mamba layer, each
+written in place by prefill and decode.  Encoder-decoder,
 VLM, learned positions and MTP raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
@@ -24,15 +28,14 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
-from .blocks import AttnLayer, build_plan, init_segment_cache, \
-    segment_windows
+from .blocks import build_plan, init_segment_cache, segment_layers
 from .common import Norm, dtype_of, embed, truncated_normal_, unembed
+from .ssm import MAMBA2_NOT_PORTED
 
 
 _NOT_PORTED = {
-    "ssm": "mamba layers are not ported: ROADMAP Queue 1 item 11b",
-    "hybrid": "mamba layers and the shared attention block (zamba2) are "
-              "not ported: ROADMAP Queue 1 items 11b and 11c",
+    "hybrid": "mamba-2 layers and the shared attention block (zamba2) are "
+              "not ported: ROADMAP Queue 1 item 11c",
     "moe": "MoE layers are not ported: ROADMAP Queue 1 item 11c",
     "encdec": "the encdec family (whisper's cross-attention layers) is not "
               "ported: ROADMAP Queue 1 item 11c",
@@ -41,6 +44,8 @@ _NOT_PORTED = {
 
 
 def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family == "ssm" and cfg.mamba_version != 1:
+        raise NotImplementedError(f"{cfg.arch_id}: {MAMBA2_NOT_PORTED}")
     if cfg.family in _NOT_PORTED or cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.arch_id}: {_NOT_PORTED.get(cfg.family, _NOT_PORTED['moe'])}")
@@ -69,10 +74,9 @@ class LM(nn.Module):
         self.head = (None if cfg.tie_embeddings else
                      nn.Parameter(torch.empty(shape, dtype=dt, device=device),
                                   requires_grad=False))
-        windows = [w for seg in build_plan(cfg)
-                   for w in segment_windows(cfg, seg)]
-        self.layers = nn.ModuleList(AttnLayer(cfg, w, device)
-                                    for w in windows)
+        self.layers = nn.ModuleList(
+            layer for seg in build_plan(cfg)
+            for layer in segment_layers(cfg, seg, device))
 
     @property
     def device(self) -> torch.device:
@@ -133,7 +137,8 @@ def forward(model: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> List[dict]:
-    """One ring-buffer cache per layer, in layer order."""
+    """One cache per layer, in layer order: a ring buffer per attention
+    layer, zero SSM state and conv window per Mamba layer."""
     _check_ported(cfg)
     dev = resolve_device(device)
     return [c for seg in build_plan(cfg)

@@ -1,0 +1,146 @@
+"""State-space layers: Mamba-1 (falcon-mamba).
+
+Port of the Mamba-1 half of ``repro.models.ssm``: the reference's leaves
+and layouts (dense weights ``(d_in, d_out)``, the depthwise conv ``(K,
+I)``, ``dt_bias``, ``A_log`` and ``D`` in float32), its initializers and
+``mamba1_forward`` with its dtype promotions.
+
+Every selective scan goes through one function,
+:func:`repro_torch.kernels.ssm_scan.selective_scan`: the hand-written
+kernel for tensors on the card, its plain version for tensors on the
+CPU.  The reference picks one of four routes for the same recurrence
+(the chunked XLA scan when ``cfg.ssm_chunk`` divides S, its Pallas
+kernel under ``attn_impl="pallas"`` without a state, the associative
+scan, and a ``lax.scan`` from a carried state); the port's kernel takes
+the carried state, so the cache-free forward, a prefill from the
+engine's zero state and each decode step all run it, and ``ssm_chunk``
+and ``attn_impl`` are accepted and do not change the result.
+
+State layout: ``h`` (B, I, N) float32, I = ``expand * d_model``, N =
+``ssm_state``; the conv cache (B, K-1, I) in the model's dtype, the last
+K-1 inputs of the causal conv.  Mamba-2 (zamba2) raises
+:class:`NotImplementedError`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.ssm_scan import ops as ssm_ops
+from .common import dense_param, dtype_of, init_dense
+
+
+MAMBA2_NOT_PORTED = "mamba-2 layers are not ported: ROADMAP Queue 1 item 11c"
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    return max(1, math.ceil(cfg.d_model / 16))
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                conv_cache: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv of x (B, S, C) with w (K, C), as the
+    reference's K shifted adds (not ``F.conv1d``: cuDNN would run it in
+    TF32 and sum in another order).  The window starts from
+    ``conv_cache`` (B, K-1, C), or from zeros.  Returns (y, the last K-1
+    inputs)."""
+    K = w.shape[0]
+    if conv_cache is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([conv_cache, x], dim=1)
+    new_cache = xp[:, xp.shape[1] - (K - 1):]
+    S = x.shape[1]
+    y = sum(xp[:, i:i + S] * w[i] for i in range(K))
+    return y + b, new_cache
+
+
+class Mamba1(nn.Module):
+    """One Mamba-1 mixer: in_proj, causal conv, SiLU, x_proj to (dt, B,
+    C), dt_proj with softplus, the selective scan, the D skip, the SiLU
+    gate and out_proj."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        if cfg.mamba_version != 1:
+            raise NotImplementedError(f"{cfg.arch_id}: {MAMBA2_NOT_PORTED}")
+        D, I, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+        K, R = cfg.ssm_conv, dt_rank(cfg)
+        dt, f32 = dtype_of(cfg), torch.float32
+        self.rank, self.n_state = R, N
+        self.in_proj = dense_param(D, 2 * I, dt, device)
+        self.conv_w = _param((K, I), dt, device)
+        self.conv_b = _param((I,), dt, device)
+        self.x_proj = dense_param(I, R + 2 * N, dt, device)
+        self.dt_proj = dense_param(R, I, dt, device)
+        self.dt_bias = _param((I,), f32, device)
+        self.A_log = _param((I, N), f32, device)
+        self.D = _param((I,), f32, device)
+        self.out_proj = dense_param(I, D, dt, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """The reference's ``init_mamba``: dense weights truncated normal
+        (``dt_proj`` at ``R ** -0.5``, ``out_proj`` at ``I ** -0.5``), the
+        conv a normal at ``K ** -0.5``, zero conv bias, ``dt_bias`` the
+        inverse softplus of dt drawn log-uniform in [1e-3, 1e-1],
+        ``A_log = log(1..N)`` on every channel, ``D = 1``."""
+        K, I = self.conv_w.shape
+        N, R = self.n_state, self.rank
+        dev, f32 = self.conv_w.device, torch.float32
+        init_dense(self.in_proj, generator)
+        w = torch.randn((K, I), generator=generator, dtype=f32, device=dev)
+        self.conv_w.copy_(K ** -0.5 * w)
+        self.conv_b.zero_()
+        init_dense(self.x_proj, generator)
+        init_dense(self.dt_proj, generator, std=R ** -0.5)
+        u = torch.rand((I,), generator=generator, dtype=f32, device=dev)
+        log_dt = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
+        self.dt_bias.copy_(torch.log(torch.expm1(torch.exp(log_dt))))
+        a = torch.arange(1, N + 1, dtype=f32, device=dev)
+        self.A_log.copy_(torch.log(a).expand(I, N))
+        self.D.fill_(1.0)
+        init_dense(self.out_proj, generator, std=I ** -0.5)
+
+    def forward(self, x: torch.Tensor, state: Optional[torch.Tensor] = None,
+                conv_cache: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x (B, S, D) -> (y (B, S, D), new state (B, I, N) f32, new conv
+        cache (B, K-1, I)); with ``state`` and ``conv_cache`` the scan and
+        the conv continue from them (prefill into a cache, decode)."""
+        R, N = self.rank, self.n_state
+        xs, z = (x @ self.in_proj).chunk(2, dim=-1)            # (B, S, I)
+        xs, new_conv = causal_conv(xs, self.conv_w, self.conv_b, conv_cache)
+        xs = F.silu(xs)
+        xdb = xs @ self.x_proj                                  # (B, S, R+2N)
+        dt_in, B_ssm, C_ssm = xdb.split([R, N, N], dim=-1)
+        # model dtype + f32 bias promotes to f32, as in the reference
+        dt = F.softplus(dt_in @ self.dt_proj + self.dt_bias).to(torch.float32)
+        A = -torch.exp(self.A_log)                              # (I, N)
+        y_scan, new_state = ssm_ops.selective_scan(xs, dt, B_ssm, C_ssm, A,
+                                                   h0=state)
+        y = y_scan + self.D * xs.to(torch.float32)
+        y = y.to(x.dtype) * F.silu(z)
+        return y @ self.out_proj, new_state, new_conv
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int,
+                   device: torch.device) -> dict:
+    """A Mamba-1 layer's decode cache: ``{"state": (B, I, N) f32,
+    "conv": (B, K-1, I)}`` in the model's dtype, zeros."""
+    I, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {"state": torch.zeros((batch, I, N), dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros((batch, K - 1, I), dtype=dtype_of(cfg),
+                                device=device)}

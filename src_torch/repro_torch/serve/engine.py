@@ -6,9 +6,13 @@ Port of ``repro.serve.engine``: fixed batch slots, waves of
 per-slot positions, EOS retirement and ``max_new_tokens`` bookkeeping as
 the reference keeps them.  The decode loop reads the sampled tokens back
 once per step (the bookkeeping needs them on the host); everything else
-stays on the model's device, and every attention call of the prefill and
-of each decode step goes through
-:func:`repro_torch.kernels.flash_attention.flash_attention`.  Sampling is
+stays on the model's device.  Every attention call of the prefill and of
+each decode step goes through
+:func:`repro_torch.kernels.flash_attention.flash_attention`, and every SSM
+scan of a Mamba model's prefill and decode steps through
+:func:`repro_torch.kernels.ssm_scan.selective_scan`, from the state that
+:func:`~repro_torch.models.model.init_cache` sets to zero (prefill) or
+that the last step left (decode).  Sampling is
 the reference's: greedy ``argmax`` (first index on ties), or a
 ``split`` of the engine's threefry key and
 :func:`repro_torch.core.prng.categorical` on ``logits / temperature``,

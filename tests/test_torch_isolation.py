@@ -1,7 +1,7 @@
 """The port stands alone: nothing under ``src_torch/`` and not
 ``chip_smoke.py`` imports JAX or the reference package, importing the
-serving, solver and LM paths leaves JAX unloaded, and the entry points
-default to the card."""
+serving, solver, LM and Mamba paths leaves JAX unloaded, and the entry
+points default to the card."""
 import ast
 import pathlib
 import subprocess
@@ -100,6 +100,34 @@ def test_the_lm_serving_path_leaves_jax_unloaded():
         "from repro_torch.models import init_params\n"
         "from repro_torch.serve.engine import Request, ServeEngine\n"
         "cfg = get_smoke_config('gemma2-2b')\n"
+        "model = init_params(cfg, torch.Generator().manual_seed(0),\n"
+        "                    device='cpu')\n"
+        "eng = ServeEngine(model, cfg, batch_size=2, max_len=32,\n"
+        "                  device='cpu')\n"
+        "reqs = eng.generate([Request(np.arange(5), max_new_tokens=3)])\n"
+        "assert len(reqs[0].out_tokens) == 3\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_the_mamba_serving_path_leaves_jax_unloaded():
+    """The slice-5 modules import, and a seeded falcon-mamba model serves
+    a wave on the CPU, without JAX or the reference."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
+        "import numpy as np, torch\n"
+        "import repro_torch.models.ssm, repro_torch.kernels.ssm_scan.ops\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.models import init_params\n"
+        "from repro_torch.serve.engine import Request, ServeEngine\n"
+        "cfg = get_smoke_config('falcon-mamba-7b')\n"
         "model = init_params(cfg, torch.Generator().manual_seed(0),\n"
         "                    device='cpu')\n"
         "eng = ServeEngine(model, cfg, batch_size=2, max_len=32,\n"

@@ -78,7 +78,7 @@ def test_configs_mirror_the_reference():
     assert same(t_configs.get_config("gemma2-2b", shape="long_500k"),
                 j_configs.get_config("gemma2-2b", shape="long_500k"))
     assert t_configs.get_config("gemma2-2b").resolved_head_dim == 256
-    for arch in sorted(set(j_configs.ARCH_IDS) - set(ARCHS)):
+    for arch in sorted(set(j_configs.ARCH_IDS) - set(t_configs.ARCH_IDS)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             t_configs.get_config(arch)
 
@@ -203,7 +203,7 @@ def test_init_params_draws_the_reference_scales():
 
 def test_unported_families_raise_with_their_roadmap_item():
     cfg = t_configs.get_smoke_config("gemma-7b")
-    for change, what in ((dict(family="ssm"), "mamba"),
+    for change, what in ((dict(family="ssm", mamba_version=2), "mamba"),
                          (dict(family="hybrid"), "mamba"),
                          (dict(n_experts=4), "MoE"),
                          (dict(family="moe", n_experts=4), "MoE"),
