@@ -10,7 +10,8 @@ raises and the script exits non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. the build of every kernel from the sources in this checkout, one
    ``nvcc`` per source, all started together (into
-   ``src_torch/repro_torch/_build/``), with each build's ``ptxas`` line;
+   ``src_torch/repro_torch/_build/``), with each build's ``ptxas`` lines
+   (``flash_attention`` has two sources, one per route);
 3. each kernel against its plain PyTorch version on the card, on the
    same inputs, at the main paths' shapes and at edge shapes, then its
    time beside the plain version, one PyTorch expression for the same
@@ -45,19 +46,25 @@ raises and the script exits non-zero:
    ``B=n, L=1`` anchor, to the port's CPU solve on the same draws
    and (squared loss, and AltMin) to ``W=0``'s excess risk;
 10. the LM serving path of gemma2-2b at full width: (a) the
-   ``flash_attention`` kernel against its plain version at the served
+   ``flash_attention`` kernels against their plain version at the served
    shapes (prefill B=4 S=5120 global and with the 4096 window binding,
    decode against a ring buffer of wrapped and empty slots), f32 and
-   bf16, softcap on and off, edge shapes (S=130, hd 64/128/256,
-   group 1/2/12), relaunches bitwise, each output row held to its own
-   scale, calls that must fail (the window dropped, the softcap dropped,
-   ``k_pos`` ignored), then its times beside the plain version,
+   bf16, softcap on and off, edge shapes (S=6..300, hd 64/128/256,
+   group 1/2/9/12, ragged edges, a block longer than Sq and Sk, 96
+   queries against a wrapped ring),
+   each case on the route it is meant to take (bf16 with at least 64
+   query rows on the tensor cores, the rest on the CUDA cores),
+   relaunches bitwise, each output row held to its own scale, calls that
+   must fail (the window dropped, the softcap dropped, ``k_pos`` ignored,
+   the causal mask dropped), then the times beside the plain version,
    FlexAttention, SDPA and the bound; (b) the f32 anchor (gemma2-2b
    FULL in float32, B=2, a 4608-token prompt, 4 teacher-forced
    tokens): ``forward`` == ``prefill`` + ``decode_step`` and kernel
-   ``forward`` == plain ``forward``, to 2e-3; (c) the served bf16 wave through
+   ``forward`` == plain ``forward``, to 2e-3, all on the CUDA cores;
+   (c) the served bf16 wave through
    ``ServeEngine`` (prompts of 5120, 4096, 1024 and 17 tokens, 32 new
-   each): 832 kernel launches, greedy and seeded-temperature runs
+   each): 832 kernel launches (the 26 prefill layers on the tensor
+   cores, 806 decode calls on the CUDA cores), greedy and seeded-temperature runs
    repeatable, the logits of prefill and the teacher-forced decode
    steps within ``SERVE_LOGIT_TOL`` of those through the plain version
    and its greedy tokens equal, two wrong decode attentions outside that
@@ -425,29 +432,36 @@ def describe_profile(kernels, window_us, top=5) -> str:
                if ranked else "no device kernels recorded (not measured)"))
 
 
-def build_all(kernels) -> None:
-    """One ``nvcc`` per source, all started together; log each build's
-    time and ``ptxas`` summary."""
+def build_all(kernels) -> dict:
+    """One ``nvcc`` per source (a kernel module's ``SOURCES``, else its
+    ``SOURCE``), all started together; log each build's time and
+    ``ptxas`` summary, and return it by library."""
     from repro_torch.kernels import _build
+    libs = {lib: src for name, k in kernels.items()
+            for lib, src in getattr(k, "SOURCES", {name: k.SOURCE}).items()}
 
-    def one(k):
+    def one(lib):
         t0 = time.perf_counter()
-        k.build()
+        _build.build(lib, libs[lib])
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        secs = dict(zip(kernels, pool.map(one, kernels.values())))
-    for name, k in kernels.items():
-        lib = _build.library_path(name, k.SOURCE)
-        ptxas = lib.with_suffix(".log").read_text()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        secs = dict(zip(libs, pool.map(one, libs)))
+    info = {}
+    for lib, src in libs.items():
+        path = _build.library_path(lib, src)
+        ptxas = path.with_suffix(".log").read_text()
         regs = sorted({int(v) for v in re.findall(r"Used (\d+) registers", ptxas)})
         spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", ptxas))
-        log(f"[build] {name}: {lib.relative_to(REPO)} in {secs[name]:.2f} s; "
+        info[lib] = {"build_s": secs[lib], "registers": regs,
+                     "spill_store_bytes": spills}
+        log(f"[build] {lib}: {path.relative_to(REPO)} in {secs[lib]:.2f} s; "
             f"{len(re.findall('Used', ptxas))} instantiations, registers "
             f"{regs[0]}-{regs[-1]}, {spills} bytes spilled")
         for line in ptxas.splitlines():
-            if "Used" in line:
-                log(f"[ptxas] {name}: {line.strip()}")
+            if "Used" in line or "Potential Performance Loss" in line:
+                log(f"[ptxas] {lib}: {line.strip()}")
+    return info
 
 
 # ---------------------------------------------------------------------------
@@ -1043,8 +1057,25 @@ FA_CASES = (
     ("ring 256 slots group 12", 3, 1, 256, 24, 2, 128, _F32, "ring", 200, 50.0),
     ("ring 200 slots hd=64 bf16", 2, 1, 200, 4, 2, 64, _BF16, "ring", 150, 30.0),
     ("ring 3 queries hd=256", 2, 3, 256, 8, 4, 256, _F32, "ring", 128, None),
+    ("S=300 hd=64 group 1 bf16", 2, 300, 300, 4, 4, 64, _BF16, "prefill", 100,
+     50.0),
+    ("S=130 hd=128 group 12 bf16", 1, 130, 130, 24, 2, 128, _BF16, "prefill",
+     64, 30.0),
+    ("S=257 hd=128 group 9 bf16", 2, 257, 257, 18, 2, 128, _BF16, "prefill",
+     None, None),
+    ("ring 96 queries hd=256 bf16", 2, 96, 512, 8, 4, 256, _BF16, "ring", 128,
+     50.0),
+    ("S=6 hd=64 group 12 bf16", 2, 6, 6, 24, 2, 64, _BF16, "prefill", None,
+     10.0),
 )
 FA_MAIN = FA_CASES[:4]
+# the cases meant for the tensor-core route (bf16, at least 64 query rows:
+# ``kernel.route``; the last one's TMA boxes of 10 queries and 64 keys
+# overhang its 6 of each); every other case runs on the CUDA cores
+FA_WGMMA = ("prefill global bf16", "prefill local bf16",
+            "S=130 hd=256 group 2 bf16", "S=300 hd=64 group 1 bf16",
+            "S=130 hd=128 group 12 bf16", "S=257 hd=128 group 9 bf16",
+            "ring 96 queries hd=256 bf16", "S=6 hd=64 group 12 bf16")
 # the served wave: 4 prompts (5120 tokens, past the window, down to 17)
 # left-padded to 5120, 32 new tokens each, greedy; cache 5120 + 32
 SERVE_PROMPTS = (5120, 4096, 1024, 17)
@@ -1086,6 +1117,8 @@ def reset_counts() -> None:
                prox_ops.prox_step, fa_ops.flash_attention,
                ssm_ops.selective_scan):
         fn.launches = 0
+    by_route = fa_ops.flash_attention.launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
 
 
 def fa_inputs(case, dev="cuda"):
@@ -1144,7 +1177,8 @@ def fa_passes(err, scale, ratio, dtype) -> bool:
 def fa_controls(case, kw):
     """The attentions that miss a feature the case exercises, as changed
     keyword arguments of the call: the window dropped (where it binds),
-    the softcap dropped, ``k_pos`` taken as 0..Sk-1 (ring cases).  The
+    the softcap dropped, ``k_pos`` taken as 0..Sk-1 (ring cases), and, in
+    a prefill case with none of these, the causal mask dropped.  The
     check must fail each."""
     from repro_torch.kernels.flash_attention.ref import key_mask
     mode, window, softcap = case[8:]
@@ -1160,7 +1194,14 @@ def fa_controls(case, kw):
         Sk = k_pos.shape[1]
         out["k_pos ignored"] = dict(kw, k_pos=torch.arange(
             Sk, dtype=k_pos.dtype, device=k_pos.device).expand_as(k_pos))
+    if not out and mode == "prefill":
+        out["causal dropped"] = dict(kw, causal=False)
     return out
+
+
+def fa_route(case) -> str:
+    """The route a case is meant to take on the card."""
+    return "wgmma" if case[0] in FA_WGMMA else "cuda_cores"
 
 
 def fa_bound_ms(case, q, k, q_pos, k_pos):
@@ -1222,20 +1263,27 @@ def fa_library(case, q, k, v, q_pos, k_pos):
 
 def fa_kernel_phase():
     """flash_attention against its plain version at the served shapes and
-    at edge shapes (each launched twice: the bytes must not move), the
-    calls that must fail (``fa_controls``: the window dropped, the
-    softcap dropped, ``k_pos`` ignored), then the times at the four
-    served shapes."""
+    at edge shapes (each launched twice, on the route the case is meant
+    to take: the bytes must not move), the calls that must fail
+    (``fa_controls``: the window dropped, the softcap dropped, ``k_pos``
+    ignored, the causal mask dropped), then the times at the four served
+    shapes."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    by_route = fa_ops.flash_attention.launches_by_route
     max_abs_err, by_case = 0.0, []
     for case in FA_CASES:
         name, B, Sq, Sk, H, Hkv, hd, dtype, mode, window, softcap = case
         q, k, v, q_pos, k_pos = fa_inputs(case)
         kw = dict(q_pos=q_pos, k_pos=k_pos, causal=True, window=window,
                   softcap=softcap)
+        before = dict(by_route)
         out = fa_ops.flash_attention(q, k, v, **kw)
         out2 = fa_ops.flash_attention(q, k, v, **kw)
+        took = {r: n - before[r] for r, n in by_route.items()}
+        route = fa_route(case)
+        check(took == {r: 2 * (r == route) for r in by_route}, f"{name}: "
+              f"launches by route {took}, want both on {route}")
         ref = attention_ref(q, k, v, **kw)
         ref_abs = attention_ref(q, k, v.abs(), **kw)
         torch.cuda.synchronize()
@@ -1245,9 +1293,9 @@ def fa_kernel_phase():
               f"bytes")
         err, scale, ratio = fa_error(out, ref, ref_abs, dtype)
         tol = FA_TOL[dtype]
-        log(f"[kernel] flash_attention {name:30s} max|err| {err:.3e} / "
-            f"max|out| {scale:.3e} (tol {tol:g} x max|out|); worst row "
-            f"{ratio:.3f} of its limit; relaunch bitwise equal")
+        log(f"[kernel] flash_attention {name:30s} route {route}: max|err| "
+            f"{err:.3e} / max|out| {scale:.3e} (tol {tol:g} x max|out|); "
+            f"worst row {ratio:.3f} of its limit; relaunch bitwise equal")
         check(fa_passes(err, scale, ratio, dtype), f"{name}: kernel "
               f"disagrees with the plain version: max|err| {err} (limit "
               f"{tol * scale}), worst row {ratio} of its limit")
@@ -1265,8 +1313,9 @@ def fa_kernel_phase():
             + "; ".join(f"{what} max|err| {c['max_abs_err']:.3e}, worst row "
                         f"{c['worst_row_ratio']:.1f} of its limit"
                         for what, c in controls.items()))
-        by_case.append({"name": name, "max_abs_err": err, "max_abs_out": scale,
-                        "worst_row_ratio": ratio, "controls": controls})
+        by_case.append({"name": name, "route": route, "max_abs_err": err,
+                        "max_abs_out": scale, "worst_row_ratio": ratio,
+                        "controls": controls})
         if case in FA_MAIN:
             max_abs_err = max(max_abs_err, err)
         del q, k, v, out, out2, ref, ref_abs
@@ -1303,16 +1352,18 @@ def fa_kernel_phase():
                                "H": H, "Hkv": Hkv, "hd": hd,
                                "dtype": "bf16", "window": window,
                                "softcap": softcap},
+                     "route": fa_route(case),
                      "kernel_ms": k_ms, "kernel_graph_ms": g_ms,
                      "plain_ms": p_ms, "library_ms": lib_ms,
                      "sdpa_no_softcap_ms": sdpa_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "bound_f32_cores_ms": f32_ms,
                      "flops": flops, "bytes": nbytes})
         fmt = lambda t: "-" if t is None else f"{t * 1e3:10.2f}"  # noqa: E731
-        log(f"[time] flash_attention {name:20s} kernel {fmt(k_ms)} us (graph "
-            f"{fmt(g_ms)} us)  plain {fmt(p_ms)} us  flex {fmt(lib_ms)} us  "
-            f"sdpa(no softcap) {fmt(sdpa_ms)} us  bound {b_ms * 1e3:9.3f} us "
-            f"({b_by}; f32 cores {f32_ms * 1e3:9.3f} us); "
+        log(f"[time] flash_attention {name:20s} ({fa_route(case)}) kernel "
+            f"{fmt(k_ms)} us (graph {fmt(g_ms)} us)  plain {fmt(p_ms)} us  "
+            f"flex {fmt(lib_ms)} us  sdpa(no softcap) {fmt(sdpa_ms)} us  "
+            f"bound {b_ms * 1e3:9.3f} us ({b_by}, {b_ms / g_ms:.3f} of the "
+            f"graph time; f32 cores {f32_ms * 1e3:9.3f} us); "
             f"{flops / (g_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
             f"{nbytes / (g_ms * 1e-3) / 1e12:.3f} TB/s; {lib_note}")
         del q, k, v
@@ -1427,12 +1478,14 @@ def lm_anchor(tag, model_mod, cfg, anchor, rng, count, plain_ctx):
             "launches": launches}
 
 
-def lm_wave(tag, model_mod, model, cfg, prompts, new, max_len, count):
+def lm_wave(tag, model_mod, model, cfg, prompts, new, max_len, count,
+            by_route=None):
     """The served bf16 wave through ``ServeEngine``: the prompts in one
     wave, ``new`` tokens each, greedy; ``count()`` (the launches of the
     first wave, counted from 0) must be n_layers · ``new``; a second
     greedy wave and two seeded temperature waves must repeat their
-    tokens.  Returns the engine, the requests' maker, the greedy tokens,
+    tokens.  ``by_route()``, if given, reads the first wave's launches by
+    route.  Returns the engine, the requests' maker, the greedy tokens,
     the left-padded batch and the wave's numbers."""
     from repro_torch.serve.engine import Request, ServeEngine
     V = cfg.vocab_size
@@ -1449,6 +1502,7 @@ def lm_wave(tag, model_mod, model, cfg, prompts, new, max_len, count):
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     launches = count()
+    routes = None if by_route is None else by_route()
     want = cfg.n_layers * new
     log(f"[{tag}] served wave ({B} prompts of {[len(p) for p in prompts]} "
         f"tokens, {new} new each, greedy) in {t_first:.2f} s; the kernel "
@@ -1486,7 +1540,8 @@ def lm_wave(tag, model_mod, model, cfg, prompts, new, max_len, count):
     return engine, requests, toks, batch, {
         "arch": cfg.arch_id, "dtype": cfg.dtype, "batch": B,
         "prompts": [len(p) for p in prompts], "new_tokens": new,
-        "max_len": max_len, "launches": launches, "first_wave_s": t_first,
+        "max_len": max_len, "launches": launches,
+        "launches_by_route": routes, "first_wave_s": t_first,
         "wave_s": t_wave, "tokens_per_s": B * new / t_wave}
 
 
@@ -1561,15 +1616,31 @@ def lm_phase(fa_ops):
     cfg = get_config(LM_ARCH)
     rng = np.random.default_rng(SEED)
     count = lambda: fa_ops.flash_attention.launches  # noqa: E731
+    by_route = lambda: dict(fa_ops.flash_attention.launches_by_route)  # noqa: E731
     out = {"anchor": lm_anchor("lm", model_mod, cfg, ANCHOR, rng, count,
                                lambda: plain_attention(attn_mod))}
+    # the f32 anchor runs on the CUDA cores only (TF32 stays off)
+    out["anchor"]["launches_by_route"] = routes = by_route()
+    want = {"wgmma": 0, "cuda_cores": out["anchor"]["launches"]}
+    log(f"[lm] anchor launches by route {routes} (want {want})")
+    check(routes == want, f"f32 anchor: launches by route {routes}, want "
+          f"{want}")
 
     model = model_mod.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in SERVE_PROMPTS]
     engine, requests, toks, batch, serve = lm_wave(
-        "lm", model_mod, model, cfg, prompts, SERVE_NEW, SERVE_MAX_LEN, count)
+        "lm", model_mod, model, cfg, prompts, SERVE_NEW, SERVE_MAX_LEN, count,
+        by_route)
+    # every prefill layer on the tensor cores, every decode step on the
+    # CUDA cores
+    routes = serve["launches_by_route"]
+    want = {"wgmma": cfg.n_layers,
+            "cuda_cores": cfg.n_layers * (SERVE_NEW - 1)}
+    log(f"[lm] served wave launches by route {routes} (want {want})")
+    check(routes == want, f"served wave: launches by route {routes}, want "
+          f"{want}")
 
     # the served wave held to the plain version: the logits of prefill
     # and of the decode steps teacher-forced on the greedy tokens, and
@@ -1999,9 +2070,9 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     # -- 2. build --------------------------------------------------------
-    build_all({"mtl_score": score_kernel, "mtl_grad": grad_kernel,
-               "prox_step": prox_kernel, "flash_attention": fa_kernel,
-               "ssm_scan": ssm_kernel})
+    builds = build_all({"mtl_score": score_kernel, "mtl_grad": grad_kernel,
+                        "prox_step": prox_kernel, "flash_attention": fa_kernel,
+                        "ssm_scan": ssm_kernel})
     torch.cuda.synchronize()
 
     # -- 3. kernel vs plain ------------------------------------------------
@@ -2290,11 +2361,19 @@ def main() -> int:
         "name": "flash_attention",
         "route": "cuda",
         "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
         "launches": lm["serve"]["launches"],
         "launches_by_path": {"LM served wave": lm["serve"]["launches"],
                              "LM f32 anchor": lm["anchor"]["launches"]},
+        "launches_by_route": lm["serve"]["launches_by_route"],
+        "routes": {"wgmma": {
+            "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_wgmma.cu",
+            "ptxas": builds["flash_attention_wgmma"]}, "cuda_cores": {
+            "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "ptxas": builds["flash_attention"]}},
         "max_abs_err": fa_err,
         "ms": fa_rows[0]["kernel_ms"],
         "kernel_ms": fa_rows[0]["kernel_ms"],

@@ -60,8 +60,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``k_pos >= 0``, ``k_pos <= q_pos`` if causal, ``k_pos > q_pos -
     window`` if windowed), with the logit softcap, f32 accumulation and
     the output in q's dtype; a row where no key counts is 0.  On the card
-    hd is one of ``kernel.HEAD_DIMS`` and H/Hkv at most 64.  The
-    prefix-LM mask (``prefix_len``) is not supported."""
+    hd is one of ``kernel.HEAD_DIMS`` and H/Hkv at most 64, and a bf16
+    call with at least 64 query rows (Sq * H/Hkv) runs on the tensor
+    cores (``kernel.route``).  The prefix-LM mask (``prefix_len``) is not
+    supported."""
     if prefix_len is not None:
         raise NotImplementedError(
             "the prefix-LM mask (paligemma) is not ported: ROADMAP Queue 1 "
@@ -91,9 +93,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k_pos = k_pos.to(torch.int32).contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
-    out = kernel.launch(q, k, v, q_pos, k_pos, causal, window, softcap, scale)
+    out, route = kernel.launch(q, k, v, q_pos, k_pos, causal, window, softcap,
+                               scale)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(kernel.ROUTES, 0)

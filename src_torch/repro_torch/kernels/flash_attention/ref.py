@@ -12,7 +12,10 @@ on the serving path, where each query's own key always counts).
 
 :func:`attention_ref` is the CPU path of
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention` and the
-oracle the CUDA kernel is held against on the card.
+oracle the CUDA kernels are held against on the card.
+:func:`key_tile_summary` and :func:`tile_states` are the plain version
+of the tensor-core kernel's pre-pass and tile skip rule
+(``csrc/flash_attention_wgmma.cu``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from typing import Optional
 import torch
 
 NEG_INF = -2.0 ** 30
+INT32_MAX, INT32_MIN = 2 ** 31 - 1, -2 ** 31
+SKIP, WHOLE, MASKED = 0, 1, 2        # key tile states
 
 
 def key_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -61,3 +66,49 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p / denom, v.to(acc))
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def key_tile_summary(k_pos: torch.Tensor, tile: int) -> torch.Tensor:
+    """(B, ceil(Sk / tile), 3) int64: the least and largest live key
+    position (``k_pos >= 0``) of each tile of ``tile`` slots, and their
+    count; a tile with no live key gives (``INT32_MAX``, ``INT32_MIN``,
+    0)."""
+    B, Sk = k_pos.shape
+    n = -(-Sk // tile)
+    kp = torch.full((B, n * tile), -1, dtype=torch.int64)
+    kp[:, :Sk] = k_pos.to(torch.int64)
+    kp = kp.view(B, n, tile)
+    live = kp >= 0
+    lo = torch.where(live, kp, INT32_MAX).amin(-1)
+    hi = torch.where(live, kp, INT32_MIN).amax(-1)
+    return torch.stack([lo, hi, live.sum(-1)], -1)
+
+
+def tile_states(q_pos: torch.Tensor, k_pos: torch.Tensor, bq: int,
+                tile: int, causal: bool, window: Optional[int]
+                ) -> torch.Tensor:
+    """(B, ceil(Sq / bq), ceil(Sk / tile)) int64: what the tensor-core
+    kernel does with each key tile for each block of ``bq`` queries, from
+    the block's (min, max) query position and the tile's
+    :func:`key_tile_summary`: ``SKIP`` (no live key, every key after the
+    block's last query, or every key at or before its first query -
+    window), ``WHOLE`` (``tile`` live keys that count for every query of
+    the block: no per-element mask) or ``MASKED``."""
+    B, Sq = q_pos.shape
+    nq = -(-Sq // bq)
+    qp = q_pos.to(torch.int64)
+    pad = nq * bq - Sq
+    qmin = torch.cat([qp, qp.new_full((B, pad), INT32_MAX)], 1)
+    qmax = torch.cat([qp, qp.new_full((B, pad), INT32_MIN)], 1)
+    qmin = qmin.view(B, nq, bq).amin(-1)[:, :, None]
+    qmax = qmax.view(B, nq, bq).amax(-1)[:, :, None]
+    lo, hi, n = key_tile_summary(k_pos, tile)[:, None].unbind(-1)
+    skip = n == 0
+    whole = n == tile
+    if causal:
+        skip = skip | (lo > qmax)
+        whole = whole & (hi <= qmin)
+    if window is not None:
+        skip = skip | (hi <= qmin - window)
+        whole = whole & (lo > qmax - window)
+    return torch.where(skip, SKIP, torch.where(whole, WHOLE, MASKED))

@@ -239,3 +239,172 @@ def test_card_check_passes_the_plain_version_and_fails_a_wrong_one(case):
     if window is not None and Sq > 400:
         assert "window dropped" in wrong
     assert [w for w, out in wrong.items() if passes(out)] == []
+
+
+# --- the tensor-core route (csrc/flash_attention_wgmma.cu) -----------------
+from repro_torch.kernels.flash_attention import kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as port_ref_mod  # noqa: E402
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,dtype,route,rows", [
+    (4, 5120, 5120, 8, 4, 256, BF16, "wgmma", 128),      # gemma2 prefill
+    (4, 1, 5152, 8, 4, 256, BF16, "cuda_cores", 8),      # gemma2 decode
+    (4, 1, 4096, 8, 4, 256, BF16, "cuda_cores", 8),      # local decode
+    (4, 5120, 5120, 8, 4, 256, F32, "cuda_cores", 64),   # the f32 anchor
+    (2, 31, 300, 4, 2, 128, BF16, "cuda_cores", 64),     # Sq·group = 62
+    (2, 32, 300, 4, 2, 128, BF16, "wgmma", 128),         # Sq·group = 64
+    (1, 300, 300, 16, 16, 256, BF16, "wgmma", 128),      # group 1
+    (1, 300, 300, 18, 2, 128, BF16, "wgmma", 126),       # group 9
+    (1, 300, 300, 24, 2, 128, BF16, "wgmma", 120),       # group 12
+    (1, 6, 40, 24, 2, 64, BF16, "wgmma", 120),           # 72 rows, bq > Sq
+    (1, 3, 40, 24, 2, 64, BF16, "cuda_cores", 64),       # 36 rows
+])
+def test_plan_routes_bf16_prefill_to_the_tensor_cores(B, Sq, Sk, H, Hkv, hd,
+                                                      dtype, route, rows):
+    """``kernel.plan``: bf16 calls with at least 64 query rows (Sq·group)
+    go to the tensor cores with a row block of ``128 // group`` queries
+    times the group (126 and 120 rows at group 9 and 12), one CTA per
+    block, KV head and batch row, and every 64-key tile; decode, f32 and
+    fewer rows stay on the CUDA cores."""
+    plan = kernel.plan(B, Sq, Sk, H, Hkv, hd, dtype, n_sm=132)
+    assert plan.route == route == kernel.route(dtype, Sq, H, Hkv, hd)
+    assert plan.rows == rows
+    if route == "wgmma":
+        group = H // Hkv
+        assert plan.n_split == 1
+        assert plan.ctas == -(-Sq // (128 // group)) * B * Hkv
+        assert plan.tiles_per_split == -(-Sk // 64)
+
+
+@pytest.mark.parametrize("case", chip_smoke.FA_CASES, ids=lambda c: c[0])
+def test_card_cases_are_meant_for_the_route_the_plan_takes(case):
+    """Phase 10 checks each case's launches by route against
+    ``chip_smoke.fa_route``; that expectation is the plan's route."""
+    name, B, Sq, Sk, H, Hkv, hd, dtype, *_ = case
+    assert chip_smoke.fa_route(case) == kernel.route(dtype, Sq, H, Hkv, hd)
+
+
+def test_cpu_dispatch_counts_no_launch_by_route():
+    q, k, v = _port(_qkv(1, 64, 64, 4, 2, 64, seed=5), "bf16")
+    pos = _arange_pos(1, 64)
+    before = dict(ops.flash_attention.launches_by_route)
+    assert set(before) == {"wgmma", "cuda_cores"}
+    flash_attention(q, k, v, q_pos=pos, k_pos=pos)
+    assert ops.flash_attention.launches_by_route == before
+
+
+def _tensor_core_emulation(q, k, v, kw, split_p=True, tile=64):
+    """The tensor-core route's arithmetic in plain torch, returned in f32
+    before the bf16 cast: bf16 q·k products (exact in f32) summed in f32,
+    the scale, softcap and mask, an online softmax over tiles of ``tile``
+    keys, and P·V with P as bf16 hi + lo (``split_p``) or as one bf16
+    value, summed in f32."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale, softcap = hd ** -0.5, kw["softcap"]
+    qf = q.float().reshape(B, Sq, Hkv, g, hd)
+    ok = key_mask(kw["q_pos"], kw["k_pos"], True, kw["window"])
+    m = torch.full((B, Hkv, g, Sq, 1), float("-inf"))
+    l = torch.zeros(B, Hkv, g, Sq, 1)
+    o = torch.zeros(B, Hkv, g, Sq, hd)
+    for k0 in range(0, k.shape[1], tile):
+        kt, vt = k[:, k0:k0 + tile].float(), v[:, k0:k0 + tile].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kt) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.masked_fill(~ok[:, None, None, :, k0:k0 + tile], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(s - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        p_used = hi + (p - hi).bfloat16().float() if split_p else hi
+        o = o * alpha + torch.einsum("bhgqk,bkhd->bhgqd", p_used, vt)
+        m = m_new
+    out = torch.where(l > 0, o / l, torch.zeros_like(o))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+@pytest.mark.parametrize("name", ["prefill global bf16", "prefill local bf16",
+                                  "S=130 hd=256 group 2 bf16",
+                                  "ring 96 queries hd=256 bf16"])
+def test_split_p_keeps_the_f32_limit_and_a_single_bf16_p_does_not(name):
+    """The route's P·V takes P as bf16 hi + lo (P to ~2^-17).  Emulated
+    in plain torch on a phase-10 case's inputs (served prefill on its last
+    ``TAIL_ROWS`` rows) and held, before the bf16 cast, to the float64
+    plain version, it passes the f32 check (``FA_TOL[f32]`` of each row's
+    max plus of its Σp·|v|); with a single bf16 P (2^-9) it fails that
+    check."""
+    case = next(c for c in chip_smoke.FA_CASES if c[0] == name)
+    _, B, Sq, Sk, H, Hkv, hd, dtype, mode, window, softcap = case
+    q, k, v, q_pos, k_pos = chip_smoke.fa_inputs(case, dev="cpu")
+    if Sq > 400:
+        q, q_pos = q[:, -TAIL_ROWS:], q_pos[:, -TAIL_ROWS:]
+    kw = dict(q_pos=q_pos, k_pos=k_pos, causal=True, window=window,
+              softcap=softcap)
+    exact = port_ref(q.double(), k.double(), v.double(), **kw)
+    exact_abs = port_ref(q.double(), k.double(), v.double().abs(), **kw)
+
+    def passes_f32(out):
+        return chip_smoke.fa_passes(
+            *chip_smoke.fa_error(out, exact, exact_abs, F32), F32)
+
+    assert passes_f32(_tensor_core_emulation(q, k, v, kw))
+    assert not passes_f32(_tensor_core_emulation(q, k, v, kw, split_p=False))
+
+
+def _brute_summary(k_pos, tile):
+    B, Sk = k_pos.shape
+    out = []
+    for b in range(B):
+        row = []
+        for t0 in range(0, Sk, tile):
+            live = [int(x) for x in k_pos[b, t0:t0 + tile] if x >= 0]
+            row.append((min(live), max(live), len(live)) if live else
+                       (2 ** 31 - 1, -2 ** 31, 0))
+        out.append(row)
+    return torch.tensor(out, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("name,bq,window", [
+    ("prefill local bf16", 64, 4096),            # contiguous, the window binds
+    ("S=300 hd=64 group 1 bf16", 128, 100),      # a ragged last tile
+    ("S=257 hd=128 group 9 bf16", 14, None),     # causal only, ragged
+    ("ring 96 queries hd=256 bf16", 64, 128),    # wrapped and empty slots
+    ("ring 256 slots group 12", 1, 200),         # one query, wrapped slots
+])
+def test_tile_skip_rule_against_brute_force(name, bq, window):
+    """The plain version of the route's pre-pass (``key_tile_summary``:
+    min, max and count of each 64-slot tile's live key positions) equals
+    a brute-force count, and its tile states hold against the mask itself
+    on wrapped, empty and windowed positions: a skipped tile has no
+    (query, key) pair that counts for its block, a whole tile has 64 live
+    keys that count for every query of the block.  On contiguous
+    positions both are exact, and the skip drops tiles."""
+    case = next(c for c in chip_smoke.FA_CASES if c[0] == name)
+    _, _, q_pos, k_pos = chip_smoke.fa_inputs(case, dev="cpu")[1:]
+    tile = kernel.WGMMA_TILE_K
+    summary = port_ref_mod.key_tile_summary(k_pos, tile)
+    assert torch.equal(summary, _brute_summary(k_pos, tile))
+    states = port_ref_mod.tile_states(q_pos, k_pos, bq, tile, True, window)
+    ok = key_mask(q_pos, k_pos, True, window)
+    B, Sq, Sk = ok.shape
+    contiguous = case[8] == "prefill"
+    for b in range(B):
+        for qb in range(states.shape[1]):
+            for t in range(states.shape[2]):
+                block = ok[b, qb * bq:(qb + 1) * bq, t * tile:(t + 1) * tile]
+                st = int(states[b, qb, t])
+                if st == port_ref_mod.SKIP:
+                    assert not block.any()
+                if st == port_ref_mod.WHOLE:
+                    assert block.shape[1] == tile and block.all()
+                if contiguous:
+                    assert (st == port_ref_mod.SKIP) == (not block.any())
+                    assert (st == port_ref_mod.WHOLE) == (
+                        block.shape[1] == tile and bool(block.all()))
+    assert int((states == port_ref_mod.SKIP).sum()) > 0
