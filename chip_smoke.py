@@ -134,7 +134,8 @@ SERVE_RTOL = 1e-5
 INT8_REL_RMS = 5e-2              # the reference's documented int8 bound
 ONBOARD_REL = 1e-2               # 8 noise-free shots in a rank-4 subspace
 # mtl_grad vs plain: the same f32 products, summed in another order
-# (one CTA walks the rows in order vs cuBLAS), ~1e-7 of the scale
+# (each CTA of a task's cluster walks its rows in order, the partials
+# are added in rank order, vs cuBLAS), ~1e-7 of the scale
 GRAD_RTOL = 1e-5
 # solver path A: the reference's spectral spec (solver_bench.py:66) and
 # its documented lazy-vs-exact bound (solver_bench.py:70)
@@ -187,7 +188,18 @@ PROX_CASES = (
     ("L=1 B=500 p=200", 1, D_BATCH, 200, "squared", _F32, 1.0, False),
     ("B=1 L=4 p=130 logistic", 4, 1, 130, "logistic", _F32, 1.0, True),
     ("B=33 p=4101 ADMM", 2, 33, 4101, "squared", _F32, 1.0, True),
-    ("logistic |pred|~1e3", 4, 257, 130, "logistic", _F32, 1e3, True))
+    ("logistic |pred|~1e3", 4, 257, 130, "logistic", _F32, 1e3, True),
+    # the row split: a ragged last range, more ranks than tiles, and
+    # 74-byte bf16 rows (not 16-byte aligned) at S=8
+    ("split ragged L=2 B=2001 p=200 log", 2, 2001, 200, "logistic", _F32, 1.0,
+     True),
+    ("split S=8 > tiles L=1 B=70", 1, 70, 200, "squared", _F32, 1.0,
+     True),
+    ("split unaligned L=1 B=20000 p=37", 1, 20000, 37, "squared", _BF16, 1.0,
+     False))
+# cases launched with a split the plan would not pick (more ranks than
+# tiles), by name
+PROX_SPLIT = {"split S=8 > tiles L=1 B=70": 8}
 
 REPO = pathlib.Path(__file__).resolve().parent
 
@@ -485,41 +497,73 @@ def grad_library(X, y, W, loss):
 
 
 GRAD_MAIN = (("FULLSP squared", FULLSP["m"], FULLSP["n"], FULLSP["p"], "squared"),
-             ("FULL logistic", FULL["m"], FULL["n"], FULL["p"], "logistic"))
+             ("FULL logistic", FULL["m"], FULL["n"], FULL["p"], "logistic"),
+             ("FULL2D logistic", FULL2D["m"], FULL2D["n"], FULL2D["p"],
+              "logistic"))
+# name, m, n, p, loss, X dtype, W scale: the edge shapes, the row
+# split's (a ragged last range, more ranks than tiles, 74-byte bf16 rows
+# at S=8) and the widest rows (a ring of one stage)
+GRAD_EDGES = (
+    ("ragged m=3 n=300 p=37 squared", 3, 300, 37, "squared", _F32, 1.0),
+    ("ragged m=3 n=300 p=37 logistic", 3, 300, 37, "logistic", _F32, 1.0),
+    ("m=1 n=1 p=5 logistic", 1, 1, 5, "logistic", _F32, 1.0),
+    ("n=513 p=2047 bf16 squared", 2, 513, 2047, "squared", _BF16, 1.0),
+    ("n=33 p=4101 logistic", 2, 33, 4101, "logistic", _F32, 1.0),
+    ("logistic |pred|~1e3", 4, 257, 130, "logistic", _F32, 1e3),
+    ("split ragged m=2 n=2001 p=200 log", 2, 2001, 200, "logistic", _F32, 1.0),
+    ("split S=8 > tiles m=1 n=70", 1, 70, 200, "squared", _F32, 1.0),
+    ("split unaligned m=1 n=20000 p=37", 1, 20000, 37, "squared", _BF16, 1.0),
+    ("p=16384 (one stage) m=2 n=5", 2, 5, 16384, "logistic", _F32, 1.0))
+GRAD_SPLIT = {"split S=8 > tiles m=1 n=70": 8}
+
+
+def forced_plan(kernel_mod, X, split):
+    """The plan for X with ``split`` ranks a task, whatever the plan picks."""
+    pl = kernel_mod.plan_for(X)
+    return pl._replace(split=split, ctas=X.shape[0] * split)
+
+
+def plan_line(pl) -> str:
+    return (f"S={pl.split}, {pl.ctas} CTAs, tile {pl.tile_rows} rows, "
+            f"{pl.stages} stages, {pl.smem_bytes} B shared")
 
 
 def grad_kernel_phase(gen):
     """mtl_grad against its plain version at the solver paths' shapes and
-    at edge shapes (each launched twice: the bytes must not move), then
-    its times at the two main shapes."""
+    at edge shapes (each launched twice: the bytes must not move; the
+    split's cases must run at S > 1), then its times at the main shapes
+    beside the library's, each with its plan."""
+    from repro_torch.kernels.mtl_grad import kernel as grad_kernel
     from repro_torch.kernels.mtl_grad import ops as grad_ops
     from repro_torch.kernels.mtl_grad.ref import task_gradients_ref
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(name, m, n, p, loss, f32, 1.0) for name, m, n, p, loss in GRAD_MAIN]
     cases += [(name + " bf16 X", m, n, p, loss, bf16, 1.0)
               for name, m, n, p, loss in GRAD_MAIN]
-    cases += [
-        ("ragged m=3 n=300 p=37 squared", 3, 300, 37, "squared", f32, 1.0),
-        ("ragged m=3 n=300 p=37 logistic", 3, 300, 37, "logistic", f32, 1.0),
-        ("m=1 n=1 p=5 logistic", 1, 1, 5, "logistic", f32, 1.0),
-        ("n=513 p=2047 bf16 squared", 2, 513, 2047, "squared", bf16, 1.0),
-        ("n=33 p=4101 logistic", 2, 33, 4101, "logistic", f32, 1.0),
-        ("logistic |pred|~1e3", 4, 257, 130, "logistic", f32, 1e3),
-    ]
+    cases += list(GRAD_EDGES)
     max_abs_err = 0.0
     for name, m, n, p, loss, xdt, ws in cases:
         X, y, W = grad_inputs(gen, m, n, p, loss, xdt, ws)
-        G = grad_ops.task_gradients(X, y, W, loss=loss)
-        G2 = grad_ops.task_gradients(X, y, W, loss=loss)
+        if name in GRAD_SPLIT:
+            pl = forced_plan(grad_kernel, X, GRAD_SPLIT[name])
+            G = grad_kernel.launch(X, y, W, loss, plan=pl)
+            G2 = grad_kernel.launch(X, y, W, loss, plan=pl)
+        else:
+            pl = grad_kernel.plan_for(X)
+            G = grad_ops.task_gradients(X, y, W, loss=loss)
+            G2 = grad_ops.task_gradients(X, y, W, loss=loss)
         ref = task_gradients_ref(X, y, W, loss=loss)
         torch.cuda.synchronize()
         check(G.shape == (m, p) and G.dtype == f32 and
               bool(torch.isfinite(G).all()), f"{name}: bad output")
         check(torch.equal(G, G2), f"{name}: two launches gave different bytes")
+        check(pl.split > 1 or not name.startswith("split"),
+              f"{name}: ran at S=1, not split")
         scale = float(ref.abs().max())
         err = float((G - ref).abs().max())
-        log(f"[kernel] mtl_grad {name:34s} max|err| {err:.3e} / max|G| "
-            f"{scale:.3e} (tol {GRAD_RTOL:g} x max|G|); relaunch bitwise equal")
+        log(f"[kernel] mtl_grad {name:34s} S={pl.split} max|err| {err:.3e} / "
+            f"max|G| {scale:.3e} (tol {GRAD_RTOL:g} x max|G|); relaunch "
+            f"bitwise equal")
         check(err <= GRAD_RTOL * scale, f"{name}: kernel disagrees with the "
               f"plain version: {err} > {GRAD_RTOL} * {scale}")
         if xdt == f32 and (m, n, p) in {(c[1], c[2], c[3]) for c in GRAD_MAIN}:
@@ -528,6 +572,8 @@ def grad_kernel_phase(gen):
     rows = []
     for name, m, n, p, loss in GRAD_MAIN:
         X, y, W = grad_inputs(gen, m, n, p, loss, f32)
+        pl = grad_kernel.plan_for(X)
+        log(f"[plan] mtl_grad {name}: {plan_line(pl)}")
 
         def kern():
             return grad_ops.task_gradients(X, y, W, loss=loss)
@@ -537,16 +583,22 @@ def grad_kernel_phase(gen):
         p_ms = time_ms(lambda: task_gradients_ref(X, y, W, loss=loss),
                        reps=20, inner=10)
         lib_ms = time_ms(lambda: grad_library(X, y, W, loss), reps=20, inner=10)
+        lib_g_ms = graph_ms(lambda: grad_library(X, y, W, loss), reps=20,
+                            inner=10)
         b_ms, b_by = grad_bound_ms(m, n, p, 4)
         rows.append({"shape": {"m": m, "n": n, "p": p, "loss": loss,
                                "x_dtype": "f32"},
+                     "plan": pl._asdict(),
                      "kernel_ms": k_ms, "kernel_graph_ms": g_ms,
                      "plain_ms": p_ms, "library_ms": lib_ms,
+                     "library_graph_ms": lib_g_ms,
                      "bound_ms": b_ms, "bound_by": b_by})
         log(f"[time] mtl_grad {name:15s} kernel {k_ms * 1e3:9.2f} us (graph "
             f"{g_ms * 1e3:9.2f} us)  plain {p_ms * 1e3:9.2f} us  library "
-            f"{lib_ms * 1e3:9.2f} us  bound {b_ms * 1e3:8.3f} us ({b_by}); "
-            f"{m * n * p * 4 / (g_ms * 1e-3) / 1e12:.2f} TB/s of X")
+            f"{lib_ms * 1e3:9.2f} us (graph {lib_g_ms * 1e3:9.2f} us)  bound "
+            f"{b_ms * 1e3:8.3f} us ({b_by}); "
+            f"{m * n * p * 4 / (g_ms * 1e-3) / 1e12:.2f} TB/s of X; device "
+            f"{g_ms / lib_g_ms:.3f}x the library's")
         del X, y, W
     torch.cuda.synchronize()
     return rows, max_abs_err
@@ -600,6 +652,8 @@ def prox_kernel_phase(gen):
     """prox_step against its plain version at path D's and FULLSP-
     stochastic's shapes and at edge shapes (each launched twice: the
     bytes must not move), then its times at the two main shapes."""
+    from repro_torch.kernels.mtl_grad import kernel as grad_kernel
+    from repro_torch.kernels.prox_step import kernel as prox_kernel
     from repro_torch.kernels.prox_step import ops as prox_ops
     from repro_torch.kernels.prox_step.ref import prox_step_ref
     f32 = torch.float32
@@ -608,16 +662,25 @@ def prox_kernel_phase(gen):
     for name, L, n, p, loss, xdt, ws, admm in PROX_CASES:
         X, y, W, Z, Q = prox_inputs(gen, L, n, p, loss, xdt, ws, admm)
         args = PROX_ADMM if admm else D
-        out = prox_ops.prox_step(X, y, W, Z, Q, loss=loss, **args)
-        out2 = prox_ops.prox_step(X, y, W, Z, Q, loss=loss, **args)
+        if name in PROX_SPLIT:
+            pl = forced_plan(grad_kernel, X, PROX_SPLIT[name])
+            scalars = [args[k] for k in ("eta", "rho", "inv_m", "l2")]
+            out = prox_kernel.launch(X, y, W, Z, Q, *scalars, loss, plan=pl)
+            out2 = prox_kernel.launch(X, y, W, Z, Q, *scalars, loss, plan=pl)
+        else:
+            pl = grad_kernel.plan_for(X)
+            out = prox_ops.prox_step(X, y, W, Z, Q, loss=loss, **args)
+            out2 = prox_ops.prox_step(X, y, W, Z, Q, loss=loss, **args)
         ref = prox_step_ref(X, y, W, Z, Q, loss=loss, **args)
         torch.cuda.synchronize()
         check(out.shape == (L, p) and out.dtype == f32 and
               bool(torch.isfinite(out).all()), f"{name}: bad output")
         check(torch.equal(out, out2), f"{name}: two launches gave different "
               f"bytes")
+        check(pl.split > 1 or not name.startswith("split"),
+              f"{name}: ran at S=1, not split")
         err, scale, step = prox_error(out, ref, W)
-        log(f"[kernel] prox_step {name:32s} max|err| {err:.3e} / "
+        log(f"[kernel] prox_step {name:32s} S={pl.split} max|err| {err:.3e} / "
             f"max(1, max|W_new|) {scale:.3e} (tol {PROX_RTOL:g} x that = "
             f"{PROX_RTOL * scale / step:.1e} of max|W - W_new| {step:.3e}); "
             f"relaunch bitwise equal")
@@ -629,6 +692,8 @@ def prox_kernel_phase(gen):
     rows = []
     for name, L, n, p, loss in PROX_MAIN:
         X, y, W, Z, Q = prox_inputs(gen, L, n, p, loss, f32)
+        pl = grad_kernel.plan_for(X)
+        log(f"[plan] prox_step {name}: {plan_line(pl)}")
 
         def kern():
             return prox_ops.prox_step(X, y, W, Z, Q, loss=loss, **D)
@@ -644,6 +709,7 @@ def prox_kernel_phase(gen):
         b_ms, b_by = prox_bound_ms(L, n, p, 4)
         rows.append({"shape": {"L": L, "B": n, "p": p, "loss": loss,
                                "x_dtype": "f32"},
+                     "plan": pl._asdict(),
                      "kernel_ms": k_ms, "kernel_graph_ms": g_ms,
                      "plain_ms": p_ms, "library_ms": lib_ms,
                      "library_graph_ms": lib_g_ms,
@@ -652,7 +718,8 @@ def prox_kernel_phase(gen):
             f"{g_ms * 1e3:9.2f} us)  plain {p_ms * 1e3:9.2f} us  library "
             f"{lib_ms * 1e3:9.2f} us (graph {lib_g_ms * 1e3:9.2f} us)  bound "
             f"{b_ms * 1e3:8.3f} us ({b_by}); "
-            f"{L * n * p * 4 / (g_ms * 1e-3) / 1e12:.2f} TB/s of X")
+            f"{L * n * p * 4 / (g_ms * 1e-3) / 1e12:.2f} TB/s of X; device "
+            f"{g_ms / lib_g_ms:.3f}x the library's")
         del X, y, W, Z, Q
     torch.cuda.synchronize()
     return rows, max_abs_err
@@ -2338,12 +2405,14 @@ def main() -> int:
         "bound_ms": grad_row["bound_ms"],
         "bound_by": grad_row["bound_by"],
         "library_ms": grad_row["library_ms"],
+        "library_graph_ms": grad_row["library_graph_ms"],
+        "plan": grad_row["plan"],
         "shape": grad_row["shape"],
         "by_shape": grad_rows,
     }, {
         "name": "prox_step",
         "route": "cuda",
-        "source": "src_torch/repro_torch/kernels/prox_step/csrc/prox_step.cu",
+        "source": "src_torch/repro_torch/kernels/mtl_grad/csrc/mtl_grad.cu",
         "replaces": "src/repro/kernels/prox_step/kernel.py:69",
         "launches": d["launches"]["prox_step"],
         "launches_by_path": {"solver D": d["launches"]["prox_step"]},
@@ -2355,6 +2424,8 @@ def main() -> int:
         "bound_ms": prox_rows[0]["bound_ms"],
         "bound_by": prox_rows[0]["bound_by"],
         "library_ms": prox_rows[0]["library_ms"],
+        "library_graph_ms": prox_rows[0]["library_graph_ms"],
+        "plan": prox_rows[0]["plan"],
         "shape": prox_rows[0]["shape"],
         "by_shape": prox_rows,
     }, {

@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Time the gradient accumulator's two kernels (``mtl_grad`` and
+``prox_step``) of one checkout of the port on one NVIDIA card, at the
+solver paths' shapes, beside the library call that computes the same
+function.
+
+    python3 grad_ab.py [--root DIR] [--tag NAME] [--sweep]
+
+``--root`` is the root of the checkout whose ``src_torch/`` is timed
+(default: this script's own), so two versions compare in one machine:
+unpack the other with ``git archive`` into a git-ignored directory and
+run ``root A, root B, root B, root A``, one process each.  The helpers
+(timers, inputs, the library yardsticks and the bounds) are this
+checkout's ``chip_smoke.py``.  Each shape is first held to the plain
+version (``chip_smoke.GRAD_RTOL`` / ``PROX_RTOL``), launched twice
+(bitwise equal), then timed: device time (one CUDA graph of 10 calls,
+median of 20 replays), per call (CUDA events around Python calls), and
+the library's device time.  ``--sweep`` times instead the accumulator
+at FULL2D logistic (and FULL's and path D's shapes) under forced plans
+(split, tile rows, stages), each held bitwise to the default plan's
+output where the split is the same.  The last line is one JSON object.
+Without a card it exits 1.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+import time
+
+import torch
+
+HERE = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE))
+import chip_smoke as cs  # noqa: E402
+
+# name, m (or L), n (or B), p, loss; the kernel's main shapes
+GRAD_SHAPES = (("FULLSP squared", 768, 64, 2048, "squared"),
+               ("FULL logistic", 32, 2000, 200, "logistic"),
+               ("FULL2D logistic", 32, 20000, 200, "logistic"))
+PROX_SHAPES = (("path D squared", 32, 500, 200, "squared"),
+               ("path D logistic", 32, 500, 200, "logistic"),
+               ("FULLSP-stochastic", 768, 32, 2048, "squared"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("grad_ab: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    root = pathlib.Path(args.root).resolve()
+    sys.path.insert(0, str(root / "src_torch"))
+    from repro_torch.kernels.mtl_grad import kernel as gk
+    from repro_torch.kernels.mtl_grad import ops as gops
+    from repro_torch.kernels.mtl_grad.ref import task_gradients_ref
+    from repro_torch.kernels.prox_step import ops as pops
+    from repro_torch.kernels.prox_step.ref import prox_step_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = cs.card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    gk.build()
+    print(f"[build] {root.name or root}: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    if args.sweep:
+        return sweep(gk, gen, card, args.tag)
+    D = cs.PROX_DESCENT
+    rows = []
+    for name, m, n, p, loss in GRAD_SHAPES:
+        X, y, W = cs.grad_inputs(gen, m, n, p, loss, torch.float32)
+
+        def kern():
+            return gops.task_gradients(X, y, W, loss=loss)
+
+        G, G2 = kern(), kern()
+        ref = task_gradients_ref(X, y, W, loss=loss)
+        err = float((G - ref).abs().max())
+        scale = float(ref.abs().max())
+        cs.check(torch.equal(G, G2) and err <= cs.GRAD_RTOL * scale,
+                 f"mtl_grad {name}: err {err} of {scale}, or relaunch differs")
+        g_ms = cs.graph_ms(kern, reps=20, inner=10)
+        k_ms = cs.time_ms(kern, reps=20, inner=10)
+        lib_ms = cs.graph_ms(lambda: cs.grad_library(X, y, W, loss),
+                             reps=20, inner=10)
+        b_ms, _ = cs.grad_bound_ms(m, n, p, 4)
+        rows.append({"kernel": "mtl_grad", "shape": name, "graph_ms": g_ms,
+                     "call_ms": k_ms, "library_graph_ms": lib_ms,
+                     "bound_ms": b_ms, "err_over_scale": err / scale})
+        del X, y, W, G, G2, ref
+    for name, L, n, p, loss in PROX_SHAPES:
+        X, y, W, Z, Q = cs.prox_inputs(gen, L, n, p, loss, torch.float32)
+
+        def kern():
+            return pops.prox_step(X, y, W, Z, Q, loss=loss, **D)
+
+        out, out2 = kern(), kern()
+        ref = prox_step_ref(X, y, W, Z, Q, loss=loss, **D)
+        err, scale, _ = cs.prox_error(out, ref, W)
+        cs.check(torch.equal(out, out2) and err <= cs.PROX_RTOL * scale,
+                 f"prox_step {name}: err {err} of {scale}, or relaunch differs")
+        g_ms = cs.graph_ms(kern, reps=20, inner=10)
+        k_ms = cs.time_ms(kern, reps=20, inner=10)
+        lib_ms = cs.graph_ms(lambda: cs.prox_library(X, y, W, Z, Q, loss=loss,
+                                                     **D), reps=20, inner=10)
+        b_ms, _ = cs.prox_bound_ms(L, n, p, 4)
+        rows.append({"kernel": "prox_step", "shape": name, "graph_ms": g_ms,
+                     "call_ms": k_ms, "library_graph_ms": lib_ms,
+                     "bound_ms": b_ms, "err_over_scale": err / scale})
+        del X, y, W, Z, Q, out, out2, ref
+    torch.cuda.synchronize()
+    for r in rows:
+        print(f"[time] {args.tag} {r['kernel']:9s} {r['shape']:18s} device "
+              f"{r['graph_ms'] * 1e3:9.2f} us  per call {r['call_ms'] * 1e3:9.2f}"
+              f" us  library device {r['library_graph_ms'] * 1e3:9.2f} us  "
+              f"bound {r['bound_ms'] * 1e3:8.3f} us", flush=True)
+    print(json.dumps({"root": str(root), "tag": args.tag, "card": card,
+                      "rows": rows}))
+    return 0
+
+
+# shape, m, n, p; (split, tile rows, stages) to force
+SWEEP = (("FULL2D logistic", 32, 20000, 200,
+          ((4, 32, 2), (4, 32, 3), (4, 64, 2), (8, 32, 2), (8, 32, 3))),
+         ("FULL logistic", 32, 2000, 200, ((4, 32, 2), (4, 32, 3), (8, 32, 2))),
+         ("path D", 32, 500, 200, ((4, 32, 2), (4, 32, 3), (8, 32, 2))))
+
+
+def sweep(gk, gen, card, tag) -> int:
+    rows = []
+    for name, m, n, p, plans in SWEEP:
+        X, y, W = cs.grad_inputs(gen, m, n, p, "logistic", torch.float32)
+        default = gk.plan_for(X)
+        ref = gk.launch(X, y, W, "logistic")
+        for split, tile, stages in plans:
+            pl = gk.Plan(split, tile, stages, m * split,
+                         gk.smem_bytes(p, tile, stages, 4))
+            G = gk.launch(X, y, W, "logistic", plan=pl)
+            if split == default.split and tile == default.tile_rows:
+                cs.check(torch.equal(G, ref), f"{name} {pl}: bytes moved")
+            ms = cs.graph_ms(lambda: gk.launch(X, y, W, "logistic", plan=pl),
+                             reps=20, inner=10)
+            rows.append({"shape": name, "plan": pl._asdict(), "graph_ms": ms})
+            print(f"[sweep] {tag} {name:15s} S={split} tile {tile:3d} stages "
+                  f"{stages} ({pl.smem_bytes} B): device {ms * 1e3:8.2f} us, "
+                  f"{m * n * p * 4 / (ms * 1e-3) / 1e12:.2f} TB/s of X"
+                  f"{' (default plan)' if pl == default else ''}", flush=True)
+        del X, y, W
+    print(json.dumps({"tag": tag, "card": card, "sweep": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

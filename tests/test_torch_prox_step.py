@@ -8,7 +8,11 @@ rtol 3e-2 / atol 9e-2 in bf16) on the reference's four
 ``test_prox_step_shapes`` cases; the CPU dispatch runs the plain version
 and counts no launch.  The CUDA kernel itself is held to the plain
 version on the card by ``chip_smoke.py``; its check is shown here to
-pass a correct step and to fail a wrong one on the same cases."""
+pass a correct step and to fail a wrong one on the same cases.  The step
+is the gradient accumulator's second epilogue (one source with
+``mtl_grad``): its launch plan is checked at the card check's cases, and
+a plain emulation of the accumulator's summation order with the step
+(``accumulator_order.py``) against the reference's Pallas kernel."""
 import pathlib
 import sys
 
@@ -26,7 +30,11 @@ import chip_smoke  # noqa: E402
 
 from repro.kernels.prox_step import prox_step as j_prox_step  # noqa: E402
 from repro.kernels.prox_step import prox_step_ref as j_prox_step_ref  # noqa: E402
+from repro_torch.kernels.mtl_grad import kernel as gkernel  # noqa: E402
+from repro_torch.kernels.prox_step import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.prox_step import ops, prox_step, prox_step_ref  # noqa: E402
+
+import accumulator_order as order  # noqa: E402
 
 ARGS = dict(eta=0.3, rho=1.7, inv_m=0.2, l2=1e-2)
 TOL = {"f32": (2e-5, 6e-5), "bf16": (3e-2, 9e-2)}      # (rtol, atol)
@@ -165,3 +173,66 @@ def test_card_check_passes_a_right_step_and_fails_a_wrong_one(case):
         wrong["rho dropped"] = prox_step_ref(X, y, W, Z, Q, loss=loss,
                                              **dict(args, rho=0.0))
     assert [k for k, out in wrong.items() if passes(out)] == []
+
+
+def test_the_step_binds_the_accumulators_library():
+    """One source and one library for both kernels: the step has no
+    source of its own, and the card's build makes the library once."""
+    assert pkernel.SOURCE == gkernel.SOURCE
+    assert pkernel.SOURCES == {gkernel.LIBRARY: gkernel.SOURCE}
+    assert not (ROOT / "src_torch/repro_torch/kernels/prox_step/csrc").exists()
+    assert pkernel.MAX_P == gkernel.MAX_P
+
+
+@pytest.mark.parametrize("case", chip_smoke.PROX_CASES,
+                         ids=[c[0] for c in chip_smoke.PROX_CASES])
+def test_card_check_cases_run_the_split_they_name(case):
+    """At each of the card check's cases on an H100 (132 SMs), the plan
+    fits a block, and a case named for the row split runs at S > 1: by
+    the plan, or forced past the tiles (``PROX_SPLIT``)."""
+    name, L, n, p, loss, xdt, ws, admm = case
+    xb = torch.empty((), dtype=xdt).element_size()
+    pl = gkernel.plan(L, n, p, xb, 132)
+    assert pl.smem_bytes <= gkernel.MAX_SMEM and pl.stages >= 1
+    split = chip_smoke.PROX_SPLIT.get(name, pl.split)
+    if name.startswith("split"):
+        assert split > 1
+    if name in chip_smoke.PROX_SPLIT:
+        assert split > -(-n // pl.tile_rows)               # ranks past the tiles
+    if name.startswith("path D"):
+        assert pl.split == 8                               # two CTAs an SM
+    if name.startswith("FULLSP"):
+        assert pl.split == 1
+
+
+# (L, n, p, X dtype, split, tile rows)
+STEP_ORDER_CASES = [
+    (4, 300, 27, "f32", 4, 32),
+    (2, 150, 24, "f32", 8, 32),
+    (3, 200, 16, "bf16", 2, 32),
+    (1, 64, 9, "f32", 8, 5),
+]
+
+
+@pytest.mark.parametrize("case", STEP_ORDER_CASES,
+                         ids=[f"L{c[0]}n{c[1]}p{c[2]}{c[3]}S{c[4]}t{c[5]}"
+                              for c in STEP_ORDER_CASES])
+@pytest.mark.parametrize("loss", ["squared", "logistic"])
+def test_kernel_summation_order_with_the_step_matches_jax_kernel(case, loss):
+    """The accumulator's order (per rank, tiles in order in f32; partials
+    in rank order) and the step against the reference's Pallas kernel in
+    interpret mode, within 1e-5 of max(1, max|W_new|) (the card check's
+    scale)."""
+    L, n, p, dt, split, tile_rows = case
+    arrays = _inputs(L, n, p, loss, seed=12)
+    jx, tx = _both(arrays[:1], dt)                  # X in dt, the rest f32
+    jr, tr = _both(arrays[1:], "f32")
+    want = np.asarray(j_prox_step(*jx, *jr, loss=loss, br=128,
+                                  interpret=True, **ARGS), np.float32)
+    X, y, W, Z, Q = *tx, *tr
+    total = order.accumulate(X, y, W, loss,
+                             gkernel.row_ranges(n, tile_rows, split),
+                             tile_rows)
+    got = order.step_out(total, n, W, Z, Q, *ARGS.values()).numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
