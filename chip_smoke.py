@@ -77,7 +77,12 @@ raises and the script exits non-zero:
    dt, and at edge shapes (I=100, N 4/8/16, S 1/33, f32), relaunches
    bitwise, y and h_final held per row to ``SSM_TOL``, scans that must
    fail (the state ignored, C_t from step t-1, the last step dropped),
-   then its times beside the plain version and the bound; (b) the f32
+   then its times beside the plain version and the bound; the same for
+   the fused mixer entry ``mamba_scan`` (softplus prologue, D-skip and
+   SiLU-gate epilogue) at the served shapes, above softplus's threshold
+   and at edge shapes, its output held per element to ``SSM_TOL`` of its
+   row plus the two roundings' ulps, with its own wrong scans (the D
+   skip, the gate, ``dt_bias``, the softplus or the state dropped); (b) the f32
    anchor (falcon-mamba-7b FULL in float32, B=2, a 1024-token prompt, 4
    teacher-forced tokens): ``forward`` == ``prefill`` + ``decode_step``
    and kernel ``forward`` == plain ``forward``, to 2e-3; (c) the served
@@ -1786,7 +1791,9 @@ SSM_RANK = 256                   # falcon-mamba's dt_rank: B_t, C_t sit at
 # mean ~0.8, decays far from 1), A ("model": -(1..N) on every channel,
 # as the init's A_log = log(1..N); "random": -exp(normal)).  The first
 # four are the served shapes (falcon-mamba-7b FULL: I=8192, N=16; B=8
-# prompts padded to 2048, decode one step, a 4096-token forward)
+# prompts padded to 2048, decode one step, a 4096-token forward).  The
+# last two fill the card's grid (1024 blocks), so the kernel's plan
+# takes P = 8 states a lane at N = 8 and in f32 (``ssm_lanes``)
 SSM_CASES = (
     ("prefill bf16 h0 zero", 8, 2048, 8192, 16, _BF16, "zero", "model", "model"),
     ("decode bf16", 8, 1, 8192, 16, _BF16, "random", "model", "model"),
@@ -1805,8 +1812,26 @@ SSM_CASES = (
     ("I=100 N=4 S=1 f32", 1, 1, 100, 4, _F32, "random", "large", "random"),
     ("I=100 N=8 S=1 f32", 1, 1, 100, 8, _F32, "random", "model", "model"),
     ("I=100 N=16 S=1 f32", 1, 1, 100, 16, _F32, "random", "model", "model"),
+    ("I=100 N=4 S=33 bf16", 2, 33, 100, 4, _BF16, "random", "model",
+     "random"),
+    ("I=100 N=8 S=33 bf16 large dt", 2, 33, 100, 8, _BF16, "random", "large",
+     "model"),
+    ("N=8 S=33 bf16 full grid", 8, 33, 8192, 8, _BF16, "random", "model",
+     "model"),
+    ("N=16 S=33 f32 full grid", 8, 33, 8192, 16, _F32, "random", "model",
+     "random"),
 )
 SSM_MAIN = SSM_CASES[:2]
+# phase 11 runs every case of at most this many steps under every states
+# a lane P the source builds (``kernel.LANE_STATES``, P <= N), not only
+# the one the kernel's plan picks, so each (N, P) and dtype of each entry
+# is held to the plain version on the card
+SSM_LANE_STEPS = 33
+# the plan's two sides, timed at P = 4 and P = 8 for both entries (N = 16
+# bf16, I = 8192): prefill of 2048 steps at B = 2 (256 blocks, P = 4 by
+# the plan) and at the served B = 8 (1024 blocks, P = 8), decode at B = 1
+# and 8
+SSM_LANE_SHAPES = ((2, 2048), (8, 2048), (1, 1), (8, 1))
 # the served wave: 8 short-chat prompts left-padded to 2048, 32 new
 # tokens each (greedy, and T=0.8 seed 0); the state cache does not grow
 SSM_PROMPTS = (2048, 1536, 1024, 768, 512, 256, 64, 17)
@@ -1832,6 +1857,54 @@ SSM_SERVE_CONTROLS = {
 # the reference's own check and tolerance (tests/test_decode_consistency.py
 # :20-41)
 SSM_ANCHOR = dict(B=2, S=1024, T=4)
+# the fused mixer entry (``ops.mamba_scan``), as ``SSM_CASES`` but with
+# dt_lin and dt_bias in place of dt ("model": dt_bias the init's inverse
+# softplus of a log-uniform dt in [1e-3, 1e-1], dt_lin 0.5 x normal;
+# "large": dt_bias 0.5 x normal, dt_lin normal; "above 20": dt_bias 0.5 x
+# normal, dt_lin 12 x normal, so ~10 % of dt_lin + dt_bias pass
+# softplus's threshold 20), A_log in place of A ("model": log(1..N);
+# "random": normal), D = 1 + 0.25 x normal, z a strided half of a (B, S,
+# 2I) tensor as ``in_proj``'s output.  The first two are the served
+# prefill and decode shapes; the last two fill the grid, as in
+# ``SSM_CASES``
+SSM_FUSED_CASES = (
+    ("fused prefill bf16 h0 zero", 8, 2048, 8192, 16, _BF16, "zero", "model",
+     "model"),
+    ("fused decode bf16", 8, 1, 8192, 16, _BF16, "random", "model", "model"),
+    ("fused prefill bf16 h0 random", 8, 2048, 8192, 16, _BF16, "random",
+     "model", "model"),
+    ("fused forward B=4 S=4096 bf16", 4, 4096, 8192, 16, _BF16, None,
+     "model", "model"),
+    ("fused prefill bf16 large dt", 8, 2048, 8192, 16, _BF16, "random",
+     "large", "random"),
+    ("fused prefill bf16 dt above 20", 8, 2048, 8192, 16, _BF16, "random",
+     "above 20", "model"),
+    ("fused I=100 N=16 S=33 bf16", 2, 33, 100, 16, _BF16, "random", "model",
+     "random"),
+    ("fused I=100 N=4 S=33 f32", 1, 33, 100, 4, _F32, "random", "model",
+     "random"),
+    ("fused I=100 N=8 S=33 f32 large dt", 1, 33, 100, 8, _F32, "random",
+     "large", "model"),
+    ("fused I=100 N=16 S=33 f32 no h0", 1, 33, 100, 16, _F32, None, "model",
+     "model"),
+    ("fused I=100 N=16 S=33 f32 dt above 20", 1, 33, 100, 16, _F32, "zero",
+     "above 20", "random"),
+    ("fused I=100 N=4 S=1 f32", 1, 1, 100, 4, _F32, "random", "large",
+     "random"),
+    ("fused I=100 N=8 S=1 f32", 1, 1, 100, 8, _F32, "random", "model",
+     "model"),
+    ("fused I=100 N=16 S=1 f32 dt above 20", 1, 1, 100, 16, _F32, "random",
+     "above 20", "model"),
+    ("fused I=100 N=4 S=33 bf16", 2, 33, 100, 4, _BF16, "random", "model",
+     "random"),
+    ("fused I=100 N=8 S=33 bf16 large dt", 2, 33, 100, 8, _BF16, "zero",
+     "large", "model"),
+    ("fused N=8 S=33 bf16 full grid", 8, 33, 8192, 8, _BF16, "random",
+     "model", "model"),
+    ("fused N=16 S=33 f32 full grid", 8, 33, 8192, 16, _F32, "random",
+     "model", "random"),
+)
+SSM_FUSED_MAIN = SSM_FUSED_CASES[:2]
 
 
 def ssm_inputs(case, dev="cuda"):
@@ -1924,14 +1997,237 @@ def ssm_bound_ms(kw):
     return bound, nbytes, n_exp
 
 
+def ssm_fused_inputs(case, dev="cuda"):
+    """Keyword arguments of one ``SSM_FUSED_CASES`` mixer scan, drawn on
+    ``dev`` from a generator seeded with the case's place (by name).  x,
+    dt_lin and z in the case's dtype, B_t and C_t slices of one (B, S,
+    R + 2N) tensor and z the second half of one (B, S, 2I) tensor, as
+    the model passes them; dt_bias, D, A_log float32."""
+    name, B, S, I, N, dtype, h0, dt_kind, a_kind = case
+    seed = SEED + 100 + [c[0] for c in SSM_FUSED_CASES].index(name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = normal(B, S, I).to(dtype)
+    if dt_kind == "model":
+        u = torch.rand(I, generator=gen, device=dev)
+        dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+        dt_bias, dt_lin = torch.log(torch.expm1(dt0)), 0.5 * normal(B, S, I)
+    else:
+        dt_bias = 0.5 * normal(I)
+        dt_lin = (12.0 if dt_kind == "above 20" else 1.0) * normal(B, S, I)
+    xdb = normal(B, S, SSM_RANK + 2 * N).to(dtype)
+    xz = normal(B, S, 2 * I).to(dtype)
+    A_log = (torch.log(torch.arange(1, N + 1, dtype=_F32, device=dev))
+             .expand(I, N).contiguous() if a_kind == "model"
+             else normal(I, N))
+    return {"x": x, "dt_lin": dt_lin.to(dtype), "dt_bias": dt_bias,
+            "Bc": xdb[..., SSM_RANK:SSM_RANK + N],
+            "Cc": xdb[..., SSM_RANK + N:], "A_log": A_log,
+            "D": 1.0 + 0.25 * normal(I), "z": xz[..., I:],
+            "h0": None if h0 is None else (
+                torch.zeros(B, I, N, device=dev) if h0 == "zero"
+                else normal(B, I, N))}
+
+
+def ssm_fused_reference(kw, softplus=True, gate=True, round_y=False):
+    """The plain mixer chain on ``kw`` (the ops of ``mamba_scan_ref``, one
+    plain scan): (out, h_final, u, s) with u = y + D x (f32) and s =
+    silu(z) (in z's dtype), the two values the output rounds from.
+    ``softplus=False`` or ``gate=False`` drop that piece, and
+    ``round_y=True`` rounds y to x's dtype before the D skip, to make a
+    wrong scan."""
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+    x = kw["x"]
+    v = kw["dt_lin"] + kw["dt_bias"]
+    dt = (F.softplus(v) if softplus else v).to(_F32)
+    y, h = selective_scan_ref(x, dt, kw["Bc"], kw["Cc"],
+                              -torch.exp(kw["A_log"]), kw["h0"])
+    u = (y.to(x.dtype).to(_F32) if round_y else y) + kw["D"] * x.to(_F32)
+    s = F.silu(kw["z"]) if gate else torch.ones_like(kw["z"])
+    return u.to(x.dtype) * s, h, u, s
+
+
+def _ulp(v, dtype):
+    """The spacing of ``dtype`` at |v| (elementwise, float32)."""
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.full_like(v, torch.finfo(dtype).eps, dtype=_F32),
+                       e - 1)
+
+
+def ssm_fused_error(out, h, ref):
+    """The fused check of (out, h_final) against ``ssm_fused_reference``'s
+    (out_r, h_r, u, s): max|out - out_r|, max|pre| (pre = u·s in f32, the
+    value before the roundings), max|h - h_r|, max|h_r| and the worst
+    element's ratio of its |diff| over its limit, ``SSM_TOL`` times its
+    row's max|pre| (a row: one step of one sequence, all channels) plus
+    one ulp of the model dtype at each of the two roundings the output
+    passes (|s|·ulp(u) for u.to(dtype), ulp(out_r) for the product): a
+    2e-5 difference in y may flip either.  h_final's rows are held to
+    ``SSM_TOL`` of their max, as in ``ssm_error``.  The check passes when
+    the ratio is at most 1 (NaN fails)."""
+    out_r, h_r, u, s = ref
+    dtype = out_r.dtype
+    sf = s.float()
+    pre = u * sf
+    limit = (SSM_TOL * pre.abs().amax(-1, keepdim=True)
+             + sf.abs() * _ulp(u, dtype) + _ulp(out_r, dtype))
+    d = (out.float() - out_r.float()).abs()
+    dh = (h - h_r).abs().flatten(1).amax(-1)
+    mh = h_r.abs().flatten(1).amax(-1)
+    ratio = max(float((d / limit).max()),
+                float(torch.where(dh > 0, dh / (SSM_TOL * mh),
+                                  torch.zeros_like(dh)).max()))
+    return (float(d.max()), float(pre.abs().max()), float(dh.max()),
+            float(mh.max()), ratio)
+
+
+def ssm_fused_passes(err_out, scale_pre, err_h, scale_h, ratio) -> bool:
+    """Whether ``ssm_fused_error``'s numbers pass the check."""
+    return ratio <= 1.0 and err_h <= SSM_TOL * scale_h
+
+
+def ssm_fused_controls(kw, scan):
+    """The mixer scans that miss what the fused check must see, as thunks
+    giving (out, h_final): the D skip dropped, ``dt_bias`` dropped and
+    (where there is one) the state ignored, through ``scan`` (the entry
+    under test); the gate dropped (silu(z) -> 1), the softplus dropped
+    and (below float32) y rounded to the model's dtype before the D skip,
+    through the plain chain, since no argument of the entry drops them.
+    The check must fail each."""
+    out = {"D skip dropped": lambda: scan(**dict(kw, D=torch.zeros_like(
+               kw["D"]))),
+           "dt_bias dropped": lambda: scan(**dict(
+               kw, dt_bias=torch.zeros_like(kw["dt_bias"]))),
+           "gate dropped": lambda: ssm_fused_reference(kw, gate=False)[:2],
+           "softplus dropped": lambda: ssm_fused_reference(
+               kw, softplus=False)[:2]}
+    if kw["x"].dtype != _F32:
+        out["y rounded before the D skip"] = lambda: ssm_fused_reference(
+            kw, round_y=True)[:2]
+    if kw["h0"] is not None and bool(kw["h0"].any()):
+        out["state ignored"] = lambda: scan(**dict(kw, h0=None))
+    return out
+
+
+def ssm_fused_bound_ms(kw):
+    """Least time for one fused call: x, dt_lin, z, B_t, C_t, dt_bias, D,
+    A_log and h0 read once, out and h_final written once, against the
+    special-function ops at the SFU rate -- the scan's B·S·I·N
+    exponentials and 3 per (b, t, i), as the kernel's SASS has them: the
+    softplus's exp (one MUFU.EX2; its log1p is a polynomial on the FMA
+    pipe), the SiLU's exp and its division's reciprocal (MUFU.RCP) --
+    and ~6 f32 flops per (b, t, i, n) at the f32 rate; the larger, with
+    the one that bounds."""
+    x, Bc = kw["x"], kw["Bc"]
+    B, S, I = x.shape
+    N = Bc.shape[-1]
+    es = x.element_size()
+    nbytes = (4 * B * S * I * es + 2 * B * S * N * Bc.element_size()
+              + 4 * I * N + 8 * I
+              + (0 if kw["h0"] is None else 4 * kw["h0"].numel())
+              + 4 * B * I * N)
+    n_sfu = B * S * I * (N + 3)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n_sfu / SFU_PER_S, 6.0 * B * S * I * N / F32_FLOPS_PER_S) * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, nbytes, n_sfu
+
+
+def ssm_lanes(ssm_kernel, case, n_sm):
+    """The states a lane P phase 11 runs ``case`` at on a card of ``n_sm``
+    SMs: the kernel's plan first, then, for a case of at most
+    ``SSM_LANE_STEPS`` steps, every other P the source builds for its
+    N."""
+    B, S, I, N = case[1:5]
+    P = ssm_kernel.plan(B, I, N, n_sm)
+    return [P] + [p for p in ssm_kernel.LANE_STATES
+                  if p <= N and p != P and S <= SSM_LANE_STEPS]
+
+
+def ssm_all_lanes(ssm_kernel):
+    """Every (N, P, dtype) the source builds, for each entry."""
+    return {(N, P, str(dt)) for N in ssm_kernel.STATE_SIZES
+            for P in ssm_kernel.LANE_STATES if P <= N
+            for dt in (_F32, _BF16)}
+
+
+def ssm_refusals(ssm_ops):
+    """Both entries refuse an h0 (and the fused one an h_out) that does
+    not start on a 16-byte boundary with a ValueError, and count no
+    launch."""
+    small = next(c for c in SSM_CASES if c[3] == 100 and c[6] == "random")
+    fsmall = next(c for c in SSM_FUSED_CASES
+                  if c[3] == 100 and c[6] == "random")
+    kw, fkw = ssm_inputs(small), ssm_fused_inputs(fsmall)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=t.device)[1:].view_as(
+            t).copy_(t)
+
+    calls = {"selective_scan h0": lambda: ssm_ops.selective_scan(
+                 **dict(kw, h0=shifted(kw["h0"]))),
+             "mamba_scan h0": lambda: ssm_ops.mamba_scan(
+                 **dict(fkw, h0=shifted(fkw["h0"]))),
+             "mamba_scan h_out": lambda: ssm_ops.mamba_scan(
+                 **fkw, h_out=shifted(fkw["h0"]))}
+    for what, call in calls.items():
+        n0 = ssm_ops.selective_scan.launches
+        try:
+            call()
+            refused = False
+        except ValueError:
+            refused = True
+        torch.cuda.synchronize()
+        check(refused and ssm_ops.selective_scan.launches == n0,
+              f"{what} off a 16-byte boundary was not refused")
+    log(f"[kernel] ssm_scan refuses a misaligned {', '.join(calls)} "
+        f"(ValueError, no launch counted)")
+
+
+def ssm_lane_times(ssm_kernel):
+    """Both entries at P = 4 and P = 8 on each side of the plan's grid
+    threshold (``SSM_LANE_SHAPES``): device time (one CUDA graph)."""
+    rows = []
+    for B, S in SSM_LANE_SHAPES:
+        tail = (B, S, 8192, 16, _BF16, "random", "model", "model")
+        kw = ssm_inputs(("prefill bf16 h0 random" if S > 1 else
+                         "decode bf16",) + tail)
+        fkw = ssm_fused_inputs(("fused prefill bf16 h0 random" if S > 1
+                                else "fused decode bf16",) + tail)
+        plan = ssm_kernel.plan(B, 8192, 16, ssm_kernel._sm_count(0))
+        reps, inner = (5, 5) if S > 1 else (20, 20)
+        for entry, fn in (
+                ("selective_scan",
+                 lambda P: ssm_kernel.launch(**kw, P=P)),
+                ("mamba_scan",
+                 lambda P: ssm_kernel.launch_fused(**fkw, h_out=fkw["h0"],
+                                                   P=P))):
+            t = {P: graph_ms(lambda: fn(P), reps=reps, inner=inner)
+                 for P in ssm_kernel.LANE_STATES}
+            rows.append({"entry": entry, "B": B, "S": S, "I": 8192, "N": 16,
+                         "blocks": B * 8192 // 64, "plan_P": plan,
+                         "graph_ms_by_P": t})
+            log(f"[lanes] {entry:14s} B={B} S={S:4d} ({B * 128:4d} blocks, "
+                f"plan P={plan}): " + ", ".join(
+                    f"P={P} {v * 1e3:9.2f} us" for P, v in t.items()))
+        del kw, fkw
+        torch.cuda.synchronize()
+    return rows
+
+
 def ssm_kernel_phase():
     """ssm_scan against its plain version at the served shapes and at edge
-    shapes (each launched twice: the bytes must not move), the scans that
-    must fail (``ssm_controls``), then the times at the served prefill and
-    decode shapes."""
+    shapes (each launched twice: the bytes must not move; the short ones
+    under every states a lane P, ``ssm_lanes``), the scans that must fail
+    (``ssm_controls``), the refusals, then the times at the served
+    prefill and decode shapes and on each side of the plan's threshold."""
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
-    max_abs_err, by_case = 0.0, []
+    max_abs_err, by_case, covered = 0.0, [], set()
     for case in SSM_CASES:
         name = case[0]
         kw = ssm_inputs(case)
@@ -1964,14 +2260,33 @@ def ssm_kernel_phase():
         log(f"[kernel] ssm_scan {name:30s} must fail and does: "
             + "; ".join(f"{what} worst row {c['worst_row_ratio']:.3g} of its "
                         f"limit" for what, c in controls.items()))
+        lanes = ssm_lanes(ssm_kernel, case, ssm_kernel._sm_count(0))
+        ratios = {lanes[0]: ratio}
+        for P in lanes[1:]:
+            fy, fh = ssm_kernel.launch(**kw, P=P)
+            fy2, fh2 = ssm_kernel.launch(**kw, P=P)
+            torch.cuda.synchronize()
+            check(torch.equal(fy, fy2) and torch.equal(fh, fh2),
+                  f"{name} P={P}: two launches gave different bytes")
+            w = ssm_error(fy, fh, y_ref, h_ref)
+            check(ssm_passes(*w), f"{name} P={P}: kernel disagrees with the "
+                  f"plain version: y {w[0]}, h {w[2]}, worst row {w[4]}")
+            ratios[P] = w[4]
+            del fy, fh, fy2, fh2
+        covered.update(("selective_scan", case[4], P, str(case[5]))
+                       for P in ratios)
+        log(f"[kernel] ssm_scan {name:30s} states a lane: " + ", ".join(
+            f"P={P}{' (plan)' if P == lanes[0] else ''} worst row "
+            f"{r:.3f}" for P, r in ratios.items()) + "; relaunch bitwise")
         by_case.append({"name": name, "max_abs_err_y": err_y,
                         "max_abs_y": scale_y, "max_abs_err_h": err_h,
                         "max_abs_h": scale_h, "worst_row_ratio": ratio,
-                        "controls": controls})
+                        "worst_row_ratio_by_P": ratios, "controls": controls})
         if case in SSM_MAIN:
             max_abs_err = max(max_abs_err, err_y, err_h)
         del kw, y, h, y2, h2, y_ref, h_ref
     torch.cuda.synchronize()
+    ssm_refusals(ssm_ops)
 
     rows = []
     for case in SSM_MAIN:
@@ -1999,16 +2314,136 @@ def ssm_kernel_phase():
             f"{n_exp / (g_ms * 1e-3) / 1e12:.3f} T exp/s")
         del kw
     torch.cuda.synchronize()
+    fused_rows, fused_err, fused_cases = ssm_fused_phase(ssm_ops, ssm_kernel,
+                                                         covered)
+    want = ssm_all_lanes(ssm_kernel)
+    for entry in ("selective_scan", "mamba_scan"):
+        got = {k[1:] for k in covered if k[0] == entry}
+        check(got >= want, f"{entry}: no case ran (N, P, dtype) "
+              f"{sorted(want - got)}")
+    log(f"[kernel] ssm_scan both entries held to the plain version at every "
+        f"(N, P, dtype) the source builds: {sorted(want)}")
+    lanes = ssm_lane_times(ssm_kernel)
+    return (rows + fused_rows, max(max_abs_err, fused_err),
+            by_case + fused_cases, lanes)
+
+
+def ssm_fused_phase(ssm_ops, ssm_kernel, covered):
+    """The fused mixer entry ``mamba_scan`` against the plain chain at
+    ``SSM_FUSED_CASES`` (each launched twice: the bytes must not move;
+    the short ones under every P, ``ssm_lanes``, each (entry, N, P,
+    dtype) added to ``covered``), its wrong scans
+    (``ssm_fused_controls``), then its times at the served prefill and
+    decode shapes."""
+    from repro_torch.kernels.ssm_scan.ref import mamba_scan_ref
+    max_abs_err, by_case = 0.0, []
+    for case in SSM_FUSED_CASES:
+        name = case[0]
+        kw = ssm_fused_inputs(case)
+        out, h = ssm_ops.mamba_scan(**kw)
+        out2, h2 = ssm_ops.mamba_scan(**kw)
+        ref = ssm_fused_reference(kw)
+        torch.cuda.synchronize()
+        check(out.shape == ref[0].shape and out.dtype == ref[0].dtype
+              and h.shape == ref[1].shape and h.dtype == _F32
+              and bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(h).all()), f"{name}: bad output")
+        check(torch.equal(out, out2) and torch.equal(h, h2),
+              f"{name}: two launches gave different bytes")
+        err = ssm_fused_error(out, h, ref)
+        n_over = int(((kw["dt_lin"].float() + kw["dt_bias"]) > 20).sum())
+        log(f"[kernel] mamba_scan {name:36s} max|err| out {err[0]:.3e} / "
+            f"max|pre| {err[1]:.3e}, h_final {err[2]:.3e} / {err[3]:.3e} "
+            f"(tol {SSM_TOL:g} x row max + the roundings' ulps); worst "
+            f"element {err[4]:.3f} of its limit; relaunch bitwise equal; "
+            f"{n_over} dt past softplus's threshold")
+        check(ssm_fused_passes(*err), f"{name}: fused kernel disagrees with "
+              f"the plain chain: out {err[0]}, h {err[2]}, worst element "
+              f"{err[4]} of its limit")
+        controls = {}
+        for what, wrong in ssm_fused_controls(kw, ssm_ops.mamba_scan).items():
+            wo, wh = wrong()
+            w = ssm_fused_error(wo, wh, ref)
+            controls[what] = {"max_abs_err_out": w[0], "max_abs_err_h": w[2],
+                              "worst_element_ratio": w[4]}
+            check(not ssm_fused_passes(*w), f"{name}: a mixer scan with "
+                  f"{what} passed the check")
+            del wo, wh
+        log(f"[kernel] mamba_scan {name:36s} must fail and does: "
+            + "; ".join(f"{what} worst element "
+                        f"{c['worst_element_ratio']:.3g} of its limit"
+                        for what, c in controls.items()))
+        lanes = ssm_lanes(ssm_kernel, case, ssm_kernel._sm_count(0))
+        ratios = {lanes[0]: err[4]}
+        for P in lanes[1:]:
+            fo, fh = ssm_kernel.launch_fused(**kw, h_out=None, P=P)
+            fo2, fh2 = ssm_kernel.launch_fused(**kw, h_out=None, P=P)
+            torch.cuda.synchronize()
+            check(torch.equal(fo, fo2) and torch.equal(fh, fh2),
+                  f"{name} P={P}: two launches gave different bytes")
+            w = ssm_fused_error(fo, fh, ref)
+            check(ssm_fused_passes(*w), f"{name} P={P}: fused kernel "
+                  f"disagrees with the plain chain: out {w[0]}, h {w[2]}, "
+                  f"worst element {w[4]}")
+            ratios[P] = w[4]
+            del fo, fh, fo2, fh2
+        covered.update(("mamba_scan", case[4], P, str(case[5]))
+                       for P in ratios)
+        log(f"[kernel] mamba_scan {name:36s} states a lane: " + ", ".join(
+            f"P={P}{' (plan)' if P == lanes[0] else ''} worst element "
+            f"{r:.3f}" for P, r in ratios.items()) + "; relaunch bitwise")
+        by_case.append({"name": name, "entry": "mamba_scan",
+                        "max_abs_err_out": err[0], "max_abs_pre": err[1],
+                        "max_abs_err_h": err[2], "max_abs_h": err[3],
+                        "worst_element_ratio": err[4],
+                        "worst_element_ratio_by_P": ratios,
+                        "dt_past_threshold": n_over, "controls": controls})
+        if case in SSM_FUSED_MAIN:
+            max_abs_err = max(max_abs_err, err[0], err[2])
+        del kw, out, h, out2, h2, ref
+    torch.cuda.synchronize()
+
+    rows = []
+    for case in SSM_FUSED_MAIN:
+        name, B, S, I, N, dtype = case[:6]
+        # timed as the mixer calls it: the state carried on in place
+        kw = ssm_fused_inputs(case)
+        kw["h_out"] = kw["h0"]
+        reps, inner = (5, 5) if S > 1 else (20, 20)
+        k_ms = time_ms(lambda: ssm_ops.mamba_scan(**kw), reps=reps,
+                       inner=inner)
+        g_ms = graph_ms(lambda: ssm_ops.mamba_scan(**kw), reps=reps,
+                        inner=inner)
+        ref_kw = {k: v for k, v in kw.items() if k != "h_out"}
+        p_ms = time_ms(lambda: mamba_scan_ref(**ref_kw), reps=3 if S > 1
+                       else reps, inner=1 if S > 1 else inner)
+        (b_ms, b_by), nbytes, n_sfu = ssm_fused_bound_ms(kw)
+        rows.append({"shape": {"name": name, "entry": "mamba_scan", "B": B,
+                               "S": S, "I": I, "N": N, "dtype": "bf16",
+                               "h0": case[6], "state_in_place": True},
+                     "kernel_ms": k_ms, "kernel_graph_ms": g_ms,
+                     "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "sfu_ops": n_sfu})
+        log(f"[time] mamba_scan {name:26s} kernel {k_ms * 1e3:10.2f} us "
+            f"(graph {g_ms * 1e3:10.2f} us)  plain {p_ms * 1e3:12.2f} us  "
+            f"library - (no single PyTorch call)  bound {b_ms * 1e3:9.3f} us "
+            f"({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e6:.3f} us, "
+            f"special-function ops {n_sfu / SFU_PER_S * 1e6:.3f} us); "
+            f"{nbytes / (g_ms * 1e-3) / 1e12:.3f} TB/s")
+        del kw
+    torch.cuda.synchronize()
     return rows, max_abs_err, by_case
 
 
 @contextlib.contextmanager
 def plain_scan(ssm_mod, decode_change=None):
-    """Send the model's selective scans through the plain version on the
-    card, for the comparison only: the port itself has no such switch.
-    ``decode_change`` (keyword arguments -> keyword arguments), if given,
-    alters the decode scans (one step), to make a wrong scan."""
-    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+    """Send the model's selective scans (both entries) through the plain
+    version on the card, for the comparison only: the port itself has no
+    such switch.  ``decode_change`` (keyword arguments -> keyword
+    arguments), if given, alters the decode scans (one step), to make a
+    wrong scan."""
+    from repro_torch.kernels.ssm_scan.ref import (mamba_scan_ref,
+                                                  selective_scan_ref)
 
     def plain(x, dt, Bc, Cc, A, *, h0=None):
         kw = dict(x=x, dt=dt, Bc=Bc, Cc=Cc, A=A, h0=h0)
@@ -2016,8 +2451,18 @@ def plain_scan(ssm_mod, decode_change=None):
             kw = decode_change(kw)
         return selective_scan_ref(**kw)
 
+    def plain_fused(x, dt_lin, dt_bias, Bc, Cc, A_log, D, z, *, h0=None,
+                    h_out=None):
+        kw = dict(x=x, dt_lin=dt_lin, dt_bias=dt_bias, Bc=Bc, Cc=Cc,
+                  A_log=A_log, D=D, z=z, h0=h0)
+        if decode_change is not None and x.shape[1] == 1:
+            kw = decode_change(kw)
+        out, h = mamba_scan_ref(**kw)
+        return out, (h if h_out is None else h_out.copy_(h))
+
     kernel_ops = ssm_mod.ssm_ops
-    ssm_mod.ssm_ops = types.SimpleNamespace(selective_scan=plain)
+    ssm_mod.ssm_ops = types.SimpleNamespace(selective_scan=plain,
+                                            mamba_scan=plain_fused)
     try:
         yield
     finally:
@@ -2362,7 +2807,7 @@ def main() -> int:
     lm = lm_phase(fa_ops)
 
     # -- 11. falcon-mamba-7b served, and ssm_scan ----------------------------
-    ssm_rows, ssm_err, ssm_cases = ssm_kernel_phase()
+    ssm_rows, ssm_err, ssm_cases, ssm_lanes_ms = ssm_kernel_phase()
     mamba = mamba_phase(ssm_ops)
 
     # -- results -----------------------------------------------------------
@@ -2465,6 +2910,7 @@ def main() -> int:
         "launches_by_path": {"mamba served wave": mamba["serve"]["launches"],
                              "mamba f32 anchor": mamba["anchor"]["launches"]},
         "max_abs_err": ssm_err,
+        "entries": ["selective_scan", "mamba_scan (the served path)"],
         "ms": ssm_rows[0]["kernel_ms"],
         "kernel_ms": ssm_rows[0]["kernel_ms"],
         "kernel_graph_ms": ssm_rows[0]["kernel_graph_ms"],
@@ -2474,6 +2920,7 @@ def main() -> int:
         "library_ms": None,
         "shape": ssm_rows[0]["shape"],
         "by_shape": ssm_rows,
+        "lanes": ssm_lanes_ms,
         "cases": ssm_cases,
     }], "serve": {"requests_per_call": N_REQUESTS, "wave": WAVE,
                   "first_call_s": t_score, "p50_call_s": p50,

@@ -11,7 +11,7 @@ stays one; the port's serving path ignores them.  ``ssm_chunk`` and
 reference they pick an XLA memory strategy (the chunked or the
 associative scan) or its Pallas kernel, while the port runs every
 selective scan through one function,
-:func:`repro_torch.kernels.ssm_scan.selective_scan`.
+:func:`repro_torch.kernels.ssm_scan.mamba_scan`.
 """
 from __future__ import annotations
 

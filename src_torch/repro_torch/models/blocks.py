@@ -103,7 +103,8 @@ class MambaLayer(nn.Module):
     without the training-only gradient cast).  Positions are not read.
     With a cache ``{"state", "conv"}`` the scan and the conv continue
     from it, and both are written in place (the serving engine owns
-    them, as it owns the attention layers' ring buffers)."""
+    them, as it owns the attention layers' ring buffers): the state by
+    the scan itself, the conv window by a copy."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
@@ -120,8 +121,8 @@ class MambaLayer(nn.Module):
         if cache is None:
             out, _, _ = self.mamba(h)
         else:
-            out, state, conv = self.mamba(h, cache["state"], cache["conv"])
-            cache["state"].copy_(state)
+            out, _, conv = self.mamba(h, cache["state"], cache["conv"],
+                                      state_out=cache["state"])
             cache["conv"].copy_(conv)
         return x + out
 

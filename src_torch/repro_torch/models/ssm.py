@@ -6,9 +6,11 @@ I)``, ``dt_bias``, ``A_log`` and ``D`` in float32), its initializers and
 ``mamba1_forward`` with its dtype promotions.
 
 Every selective scan goes through one function,
-:func:`repro_torch.kernels.ssm_scan.selective_scan`: the hand-written
-kernel for tensors on the card, its plain version for tensors on the
-CPU.  The reference picks one of four routes for the same recurrence
+:func:`repro_torch.kernels.ssm_scan.mamba_scan`, which takes in the
+mixer's elementwise chain around the scan (the softplus of dt, ``A =
+-exp(A_log)``, the D skip and the SiLU gate): the hand-written kernel
+for tensors on the card, its plain version for tensors on the CPU.  The
+reference picks one of four routes for the same recurrence
 (the chunked XLA scan when ``cfg.ssm_chunk`` divides S, its Pallas
 kernel under ``attn_impl="pallas"`` without a state, the associative
 scan, and a ``lax.scan`` from a carried state); the port's kernel takes
@@ -114,24 +116,28 @@ class Mamba1(nn.Module):
         init_dense(self.out_proj, generator, std=I ** -0.5)
 
     def forward(self, x: torch.Tensor, state: Optional[torch.Tensor] = None,
-                conv_cache: Optional[torch.Tensor] = None
+                conv_cache: Optional[torch.Tensor] = None, *,
+                state_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x (B, S, D) -> (y (B, S, D), new state (B, I, N) f32, new conv
         cache (B, K-1, I)); with ``state`` and ``conv_cache`` the scan and
-        the conv continue from them (prefill into a cache, decode)."""
+        the conv continue from them (prefill into a cache, decode).  With
+        ``state_out`` (B, I, N) f32 the new state is written into it and
+        returned; it may be ``state`` (the serving cache, carried on in
+        place)."""
         R, N = self.rank, self.n_state
         xs, z = (x @ self.in_proj).chunk(2, dim=-1)            # (B, S, I)
         xs, new_conv = causal_conv(xs, self.conv_w, self.conv_b, conv_cache)
         xs = F.silu(xs)
         xdb = xs @ self.x_proj                                  # (B, S, R+2N)
         dt_in, B_ssm, C_ssm = xdb.split([R, N, N], dim=-1)
-        # model dtype + f32 bias promotes to f32, as in the reference
-        dt = F.softplus(dt_in @ self.dt_proj + self.dt_bias).to(torch.float32)
-        A = -torch.exp(self.A_log)                              # (I, N)
-        y_scan, new_state = ssm_ops.selective_scan(xs, dt, B_ssm, C_ssm, A,
-                                                   h0=state)
-        y = y_scan + self.D * xs.to(torch.float32)
-        y = y.to(x.dtype) * F.silu(z)
+        # the scan with the reference's chain around it: dt = softplus(
+        # dt_in @ dt_proj + dt_bias) (model dtype + f32 bias promotes to
+        # f32), A = -exp(A_log), then (y + D xs).to(x.dtype) * silu(z)
+        y, new_state = ssm_ops.mamba_scan(xs, dt_in @ self.dt_proj,
+                                          self.dt_bias, B_ssm, C_ssm,
+                                          self.A_log, self.D, z, h0=state,
+                                          h_out=state_out)
         return y @ self.out_proj, new_state, new_conv
 
 

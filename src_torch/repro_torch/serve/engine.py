@@ -10,7 +10,7 @@ stays on the model's device.  Every attention call of the prefill and of
 each decode step goes through
 :func:`repro_torch.kernels.flash_attention.flash_attention`, and every SSM
 scan of a Mamba model's prefill and decode steps through
-:func:`repro_torch.kernels.ssm_scan.selective_scan`, from the state that
+:func:`repro_torch.kernels.ssm_scan.mamba_scan`, from the state that
 :func:`~repro_torch.models.model.init_cache` sets to zero (prefill) or
 that the last step left (decode).  Sampling is
 the reference's: greedy ``argmax`` (first index on ties), or a

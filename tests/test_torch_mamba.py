@@ -22,11 +22,15 @@ f32) and seeded numpy inputs:
   (``tests/test_decode_consistency.py:20-41``);
 * the converter keeps every leaf bit for bit (bf16 too);
 * ``ServeEngine``'s greedy tokens, and its seeded temperature-0.8
-  tokens, equal the reference engine's.
+  tokens, equal the reference engine's;
+* the mixer reaches the scan only through the fused entry
+  (``ssm_ops.mamba_scan``), and ``state_out`` carries the state on in
+  place.
 """
 import dataclasses
 import pathlib
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -182,6 +186,54 @@ def test_teacher_forced_decode_matches_forward_and_the_reference(models):
     for j, c in enumerate(cache):
         _close(c["state"], j_state[j], MIXER_RTOL, f"layer {j} state")
         _close(c["conv"], j_conv[j], MIXER_RTOL, f"layer {j} conv cache")
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mixer_reaches_the_scan_only_through_the_fused_entry(models,
+                                                           with_state):
+    """With the scan module's namespace cut down to ``mamba_scan`` alone
+    (counting its calls), the mixer gives the same bytes as through the
+    full module, one call a forward."""
+    jcfg, params, tcfg, model = models
+    B, S = 2, 12
+    mixer = model.layers[0].mamba
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (B, S, jcfg.d_model)).astype(np.float32))
+    args = ((torch.randn(B, jcfg.d_inner, jcfg.ssm_state,
+                         generator=torch.Generator().manual_seed(1)),
+             torch.randn(B, jcfg.ssm_conv - 1, jcfg.d_inner,
+                         generator=torch.Generator().manual_seed(2)))
+            if with_state else ())
+    want = mixer(x, *args)
+    calls = []
+
+    def fused(*a, **kw):
+        calls.append(kw.get("h0") is not None)
+        return ssm_ops.mamba_scan(*a, **kw)
+
+    full = t_ssm.ssm_ops
+    t_ssm.ssm_ops = types.SimpleNamespace(mamba_scan=fused)
+    try:
+        got = mixer(x, *args)
+    finally:
+        t_ssm.ssm_ops = full
+    assert calls == [with_state]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_mixer_state_out_carries_the_state_on_in_place(models):
+    jcfg, params, tcfg, model = models
+    B, S = 2, 7
+    mixer = model.layers[1].mamba
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (B, S, jcfg.d_model)).astype(np.float32))
+    state = torch.randn(B, jcfg.d_inner, jcfg.ssm_state,
+                        generator=torch.Generator().manual_seed(3))
+    conv = torch.zeros(B, jcfg.ssm_conv - 1, jcfg.d_inner)
+    y, new_state, new_conv = mixer(x, state.clone(), conv)
+    y2, out_state, new_conv2 = mixer(x, state, conv, state_out=state)
+    assert out_state is state and torch.equal(state, new_state)
+    assert torch.equal(y2, y) and torch.equal(new_conv2, new_conv)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
