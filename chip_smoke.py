@@ -11,11 +11,15 @@ raises and the script exits non-zero:
 2. the build of every kernel from the sources in this checkout, one
    ``nvcc`` per source, all started together (into
    ``src_torch/repro_torch/_build/``), with each build's ``ptxas`` lines
-   (``flash_attention`` has two sources, one per route);
+   (``flash_attention`` has three sources, one per route);
 3. each kernel against its plain PyTorch version on the card, on the
-   same inputs, at the main paths' shapes and at edge shapes, then its
-   time beside the plain version, one PyTorch expression for the same
-   function, and the least time the card could take;
+   same inputs, at the main paths' shapes and at edge shapes (for
+   ``mtl_score`` also p inside one warp's first copy, every rank 1..8,
+   unaligned rows, and those cases again at 4 rows a warp; each launched
+   twice: the bytes must not move), then
+   its time beside the plain version, one PyTorch expression for the
+   same function, the least time the card could take and (``mtl_score``)
+   an empty kernel's time in the same graph harness, the floor;
 4. the serving path at full width (p=2048, m=4096, r=4, the acceptance
    point of the reference's serve benchmark): factorize a seeded rank-4
    W plus noise on the card, publish it to a store, load it, serve 1024
@@ -51,20 +55,26 @@ raises and the script exits non-zero:
    decode against a ring buffer of wrapped and empty slots), f32 and
    bf16, softcap on and off, edge shapes (S=6..300, hd 64/128/256,
    group 1/2/9/12, ragged edges, a block longer than Sq and Sk, 96
-   queries against a wrapped ring),
+   queries against a wrapped ring, decode at every (dtype, hd, rows)
+   the decode kernel builds, with rings of slots that are no multiple of
+   its tile and splits in which no key counts, and calls of 10 and 16
+   query rows on the CUDA cores whose keys split),
    each case on the route it is meant to take (bf16 with at least 64
-   query rows on the tensor cores, the rest on the CUDA cores),
+   query rows on the tensor cores, at most 8 query rows on the decode
+   kernel, the rest on the CUDA cores),
    relaunches bitwise, each output row held to its own scale, calls that
    must fail (the window dropped, the softcap dropped, ``k_pos`` ignored,
    the causal mask dropped), then the times beside the plain version,
    FlexAttention, SDPA and the bound; (b) the f32 anchor (gemma2-2b
    FULL in float32, B=2, a 4608-token prompt, 4 teacher-forced
    tokens): ``forward`` == ``prefill`` + ``decode_step`` and kernel
-   ``forward`` == plain ``forward``, to 2e-3, all on the CUDA cores;
+   ``forward`` == plain ``forward``, to 2e-3, forward and prefill on the
+   CUDA cores, the decode steps on the decode kernel;
    (c) the served bf16 wave through
    ``ServeEngine`` (prompts of 5120, 4096, 1024 and 17 tokens, 32 new
    each): 832 kernel launches (the 26 prefill layers on the tensor
-   cores, 806 decode calls on the CUDA cores), greedy and seeded-temperature runs
+   cores, 806 decode calls on the decode kernel), greedy and
+   seeded-temperature runs
    repeatable, the logits of prefill and the teacher-forced decode
    steps within ``SERVE_LOGIT_TOL`` of those through the plain version
    and its greedy tokens equal, two wrong decode attentions outside that
@@ -205,6 +215,34 @@ PROX_CASES = (
 # cases launched with a split the plan would not pick (more ranks than
 # tiles), by name
 PROX_SPLIT = {"split S=8 > tiles L=1 B=70": 8}
+
+# phase 3's edge cases of mtl_score: name, B, p, m, r, code dtype, X and
+# U dtype, ids out of range.  p inside one warp's first copy; rows
+# 16-byte aligned or not (p=1001 bf16: every eighth row; p=2047 bf16:
+# none); every rank the kernel takes; B=77 and 33 leave a warp part of
+# its rows at 4 rows a warp
+SCORE_EDGES = (
+    ("bf16 X,U f32 table", 256, P, M, R, "f32", _BF16, False),
+    ("bf16 X,U int8 table", 256, P, M, R, "int8", _BF16, False),
+    ("ragged B=77 p=2047 f32", 77, 2047, 50, 3, "f32", _F32, False),
+    ("ragged B=77 p=2047 fp8 bf16", 77, 2047, 50, 3, "fp8", _BF16, False),
+    ("r=8 B=33 p=520 int8", 33, 520, 9, 8, "int8", _F32, False),
+    ("clamp B=64 f32", 64, P, M, R, "f32", _F32, True),
+    ("clamp B=64 fp8", 64, P, M, R, "fp8", _F32, True),
+    ("p=100 B=64 f32", 64, 100, 9, 4, "f32", _F32, False),
+    ("p=5 B=300 bf16 int8", 300, 5, 9, 4, "int8", _BF16, False),
+    ("unaligned B=40 p=1001 bf16", 40, 1001, 20, 4, "int8", _BF16, False),
+) + tuple((f"r={r} B=100 p=300", 100, 300, 9, r, ("f32", "int8", "fp8")[r % 3],
+           _F32 if r % 2 else _BF16, False) for r in range(1, 9))
+
+
+def score_rw4_plan(score_kernel, B):
+    """The launch of B rows at 4 rows a warp and 2 warps a row (16 rows a
+    CTA), the plan of the served waves of 528 rows or more, forced at
+    phase 3's edge shapes, which the plan gives one row a warp."""
+    rows = score_kernel.WARPS // 2 * 4
+    return score_kernel.Plan(2, 4, rows, -(-B // rows))
+
 
 REPO = pathlib.Path(__file__).resolve().parent
 
@@ -1139,15 +1177,51 @@ FA_CASES = (
      50.0),
     ("S=6 hd=64 group 12 bf16", 2, 6, 6, 24, 2, 64, _BF16, "prefill", None,
      10.0),
+    # the decode kernel's other instantiations (dtype x hd x 2 or 8 rows),
+    # each against a ring of Sk slots that is no multiple of its tile; the
+    # windows leave whole splits with no key that counts
+    ("decode hd=64 f32 group 1", 3, 1, 333, 4, 4, 64, _F32, "ring", 100, 30.0),
+    ("decode hd=128 f32 group 2", 2, 1, 777, 8, 4, 128, _F32, "ring", None,
+     50.0),
+    ("decode hd=128 bf16 group 2", 2, 1, 1000, 8, 4, 128, _BF16, "ring", 300,
+     50.0),
+    ("decode 8 rows hd=64 bf16", 2, 1, 500, 16, 2, 64, _BF16, "ring", 200,
+     30.0),
+    ("decode 8 rows hd=128 bf16", 1, 2, 700, 8, 2, 128, _BF16, "ring", None,
+     50.0),
+    ("decode 8 rows hd=256 bf16", 2, 4, 600, 4, 2, 256, _BF16, "ring", 128,
+     None),
+    ("decode 8 rows hd=64 f32", 2, 1, 300, 8, 1, 64, _F32, "ring", 64, 20.0),
+    ("decode 8 rows hd=128 f32", 1, 2, 450, 12, 3, 128, _F32, "ring", None,
+     30.0),
+    # 9 to 63 query rows against a long ring stay on the CUDA cores, with
+    # the keys split over CTAs and the splits merged by the combine pass;
+    # the window leaves whole splits with no key that counts
+    ("ring 4 queries group 4 bf16 split", 1, 4, 4096, 8, 2, 128, _BF16,
+     "ring", 300, 50.0),
+    ("ring 5 queries hd=64 f32 split", 2, 5, 3000, 4, 2, 64, _F32, "ring",
+     None, 30.0),
 )
 FA_MAIN = FA_CASES[:4]
 # the cases meant for the tensor-core route (bf16, at least 64 query rows:
-# ``kernel.route``; the last one's TMA boxes of 10 queries and 64 keys
-# overhang its 6 of each); every other case runs on the CUDA cores
+# ``kernel.route``; "S=6 hd=64 group 12 bf16"'s TMA boxes of 10 queries
+# and 64 keys overhang its 6 of each), and those meant for the decode
+# route (at most 8 query rows, Sq * group); every other case runs on the
+# CUDA cores
 FA_WGMMA = ("prefill global bf16", "prefill local bf16",
             "S=130 hd=256 group 2 bf16", "S=300 hd=64 group 1 bf16",
             "S=130 hd=128 group 12 bf16", "S=257 hd=128 group 9 bf16",
             "ring 96 queries hd=256 bf16", "S=6 hd=64 group 12 bf16")
+FA_DECODE = ("decode global bf16", "decode local bf16", "decode local f32",
+             "decode global f32 no softcap", "ring 200 slots hd=64 bf16",
+             "ring 3 queries hd=256", "decode hd=64 f32 group 1",
+             "decode hd=128 f32 group 2", "decode hd=128 bf16 group 2",
+             "decode 8 rows hd=64 bf16", "decode 8 rows hd=128 bf16",
+             "decode 8 rows hd=256 bf16", "decode 8 rows hd=64 f32",
+             "decode 8 rows hd=128 f32")
+# the CUDA-core cases whose keys the plan splits (``fa_split``)
+FA_SPLIT = ("ring 4 queries group 4 bf16 split",
+            "ring 5 queries hd=64 f32 split")
 # the served wave: 4 prompts (5120 tokens, past the window, down to 17)
 # left-padded to 5120, 32 new tokens each, greedy; cache 5120 + 32
 SERVE_PROMPTS = (5120, 4096, 1024, 17)
@@ -1273,7 +1347,37 @@ def fa_controls(case, kw):
 
 def fa_route(case) -> str:
     """The route a case is meant to take on the card."""
-    return "wgmma" if case[0] in FA_WGMMA else "cuda_cores"
+    return ("wgmma" if case[0] in FA_WGMMA else
+            "decode" if case[0] in FA_DECODE else "cuda_cores")
+
+
+def fa_decode_shape(fa_kernel, case, n_sm):
+    """The decode kernel's instantiation a case reaches on a card of
+    ``n_sm`` SMs, (dtype, hd, rows), and the splits (CTAs of one batch
+    row and KV head) in which no key counts for any of its rows."""
+    from repro_torch.kernels.flash_attention.ref import key_mask
+    _, B, Sq, Sk, H, Hkv, hd, dtype, _, window, _ = case
+    pl = fa_kernel.plan(B, Sq, Sk, H, Hkv, hd, dtype, n_sm)
+    _, _, q_pos, k_pos = fa_inputs(case, dev="cpu")[1:]
+    per = pl.tiles_per_split * fa_kernel.decode_tile_keys(hd, dtype)
+    ok = key_mask(q_pos, k_pos, True, window).any(1)          # (B, Sk)
+    empty = sum(not bool(ok[b, z * per:(z + 1) * per].any())
+                for b in range(B) for z in range(pl.n_split))
+    return (str(dtype).split(".")[-1], hd, pl.rows), empty
+
+
+def fa_split(fa_kernel, case, n_sm):
+    """The key splits of a case's launch on a card of ``n_sm`` SMs, and
+    those of them in which no key counts for any of its rows."""
+    from repro_torch.kernels.flash_attention.ref import key_mask
+    _, B, Sq, Sk, H, Hkv, hd, dtype, _, window, _ = case
+    pl = fa_kernel.plan(B, Sq, Sk, H, Hkv, hd, dtype, n_sm)
+    _, _, q_pos, k_pos = fa_inputs(case, dev="cpu")[1:]
+    per = pl.tiles_per_split * fa_kernel.TILE_K
+    ok = key_mask(q_pos, k_pos, True, window).any(1)          # (B, Sk)
+    empty = sum(not bool(ok[b, z * per:(z + 1) * per].any())
+                for b in range(B) for z in range(pl.n_split))
+    return pl.n_split, empty
 
 
 def fa_bound_ms(case, q, k, q_pos, k_pos):
@@ -1340,10 +1444,44 @@ def fa_kernel_phase():
     (``fa_controls``: the window dropped, the softcap dropped, ``k_pos``
     ignored, the causal mask dropped), then the times at the four served
     shapes."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     by_route = fa_ops.flash_attention.launches_by_route
     max_abs_err, by_case = 0.0, []
+
+    # the decode cases reach every instantiation of the decode source, and
+    # some split of theirs holds no key that counts
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    reached, empty = set(), 0
+    for case in FA_CASES:
+        if fa_route(case) == "decode":
+            shape, n_empty = fa_decode_shape(fa_kernel, case, n_sm)
+            reached.add(shape)
+            empty += n_empty
+    want = {(d, hd, rows) for d in ("float32", "bfloat16")
+            for hd in fa_kernel.HEAD_DIMS for rows in fa_kernel.DECODE_ROWS}
+    log(f"[kernel] flash_attention decode cases reach {len(reached)} of the "
+        f"{len(want)} (dtype, hd, rows) instantiations; {empty} of their "
+        f"splits hold no key that counts")
+    check(reached == want, f"decode cases miss the instantiations "
+          f"{sorted(want - reached)}")
+    check(empty > 0, "no decode case has a split in which no key counts")
+    # the CUDA-core route's split pass: its split cases split there, and
+    # some of their splits hold no key that counts
+    splits = {}
+    for case in FA_CASES:
+        if case[0] in FA_SPLIT:
+            splits[case[0]] = dict(zip(("n_split", "empty_splits"),
+                                       fa_split(fa_kernel, case, n_sm)))
+    log(f"[kernel] flash_attention CUDA-core split cases: {splits}")
+    check(len(splits) == len(FA_SPLIT) and
+          all(s["n_split"] > 1 for s in splits.values()),
+          f"a CUDA-core split case does not split: {splits}")
+    check(any(s["empty_splits"] > 0 for s in splits.values()),
+          "no CUDA-core split case has a split in which no key counts")
+    decode = {"instantiations": sorted(reached), "empty_splits": empty,
+              "cuda_core_splits": splits}
     for case in FA_CASES:
         name, B, Sq, Sk, H, Hkv, hd, dtype, mode, window, softcap = case
         q, k, v, q_pos, k_pos = fa_inputs(case)
@@ -1440,7 +1578,7 @@ def fa_kernel_phase():
             f"{nbytes / (g_ms * 1e-3) / 1e12:.3f} TB/s; {lib_note}")
         del q, k, v
     torch.cuda.synchronize()
-    return rows, max_abs_err, by_case
+    return rows, max_abs_err, by_case, decode
 
 
 @contextlib.contextmanager
@@ -1618,11 +1756,13 @@ def lm_wave(tag, model_mod, model, cfg, prompts, new, max_len, count,
 
 
 def wave_times(tag, model_mod, model, engine, requests, batch, new, max_len,
-               kernel):
+               kernel, match=None):
     """Where a served wave's time goes: prefill (three runs, each synced),
     each decode step with the engine's one read-back, and
     ``torch.profiler`` windows over the decode steps and over one whole
-    wave; ``kernel`` names the port's kernel among the profiled ones."""
+    wave; ``kernel`` names the port's kernel, and a profiled kernel whose
+    name holds one of ``match`` (default: ``kernel``) is counted as its."""
+    match = (kernel,) if match is None else match
     B, S = batch["tokens"].shape
 
     def prefill():
@@ -1652,8 +1792,10 @@ def wave_times(tag, model_mod, model, engine, requests, batch, new, max_len,
     dec_kernels, dec_us = profile_kernels(lambda: decode(cur, cache, []))
     del cache
     kernels, window_us = profile_kernels(lambda: engine.generate(requests()))
-    k_us = sum(us for name, us in kernels.items() if kernel in name)
-    dec_k_us = sum(us for name, us in dec_kernels.items() if kernel in name)
+    k_us = sum(us for name, us in kernels.items()
+               if any(m in name for m in match))
+    dec_k_us = sum(us for name, us in dec_kernels.items()
+                   if any(m in name for m in match))
     log(f"[{tag}] prefill {statistics.median(pre_ms):.2f} ms (of {pre_ms}); "
         f"decode step median {statistics.median(dec_ms):.3f} ms (min "
         f"{min(dec_ms):.3f}, max {max(dec_ms):.3f})")
@@ -1691,9 +1833,11 @@ def lm_phase(fa_ops):
     by_route = lambda: dict(fa_ops.flash_attention.launches_by_route)  # noqa: E731
     out = {"anchor": lm_anchor("lm", model_mod, cfg, ANCHOR, rng, count,
                                lambda: plain_attention(attn_mod))}
-    # the f32 anchor runs on the CUDA cores only (TF32 stays off)
+    # the f32 anchor: forward and prefill on the CUDA cores (TF32 stays
+    # off), its T decode steps on the decode kernel
     out["anchor"]["launches_by_route"] = routes = by_route()
-    want = {"wgmma": 0, "cuda_cores": out["anchor"]["launches"]}
+    want = {"wgmma": 0, "decode": cfg.n_layers * ANCHOR["T"],
+            "cuda_cores": 2 * cfg.n_layers}
     log(f"[lm] anchor launches by route {routes} (want {want})")
     check(routes == want, f"f32 anchor: launches by route {routes}, want "
           f"{want}")
@@ -1706,10 +1850,10 @@ def lm_phase(fa_ops):
         "lm", model_mod, model, cfg, prompts, SERVE_NEW, SERVE_MAX_LEN, count,
         by_route)
     # every prefill layer on the tensor cores, every decode step on the
-    # CUDA cores
+    # decode kernel
     routes = serve["launches_by_route"]
-    want = {"wgmma": cfg.n_layers,
-            "cuda_cores": cfg.n_layers * (SERVE_NEW - 1)}
+    want = {"wgmma": cfg.n_layers, "decode": cfg.n_layers * (SERVE_NEW - 1),
+            "cuda_cores": 0}
     log(f"[lm] served wave launches by route {routes} (want {want})")
     check(routes == want, f"served wave: launches by route {routes}, want "
           f"{want}")
@@ -1762,7 +1906,8 @@ def lm_phase(fa_ops):
         "plain_top2_margin_min": margin,
         "wrong_decode_logits_max_abs_err": serve_controls})
     serve.update(wave_times("lm", model_mod, model, engine, requests, batch,
-                            SERVE_NEW, SERVE_MAX_LEN, "flash_attention"))
+                            SERVE_NEW, SERVE_MAX_LEN, "flash_attention",
+                            match=("flash_attention", "flash_decode")))
     out["serve"] = serve
     del model, engine
     torch.cuda.empty_cache()
@@ -2590,27 +2735,32 @@ def main() -> int:
     # -- 3. kernel vs plain ------------------------------------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32 = torch.float32
     cases = [(f"serve B={B} {cd}", B, P, M, R, cd, f32, False)
              for B in BATCHES for cd in ("f32", "int8", "fp8")]
-    cases += [
-        ("bf16 X,U f32 table", 256, P, M, R, "f32", bf16, False),
-        ("bf16 X,U int8 table", 256, P, M, R, "int8", bf16, False),
-        ("ragged B=77 p=2047 f32", 77, 2047, 50, 3, "f32", f32, False),
-        ("ragged B=77 p=2047 fp8 bf16", 77, 2047, 50, 3, "fp8", bf16, False),
-        ("r=8 B=33 p=520 int8", 33, 520, 9, 8, "int8", f32, False),
-        ("clamp B=64 f32", 64, P, M, R, "f32", f32, True),
-        ("clamp B=64 fp8", 64, P, M, R, "fp8", f32, True),
-    ]
+    cases += list(SCORE_EDGES)
+    # the edge cases again, launched at 4 rows a warp (``score_rw4_plan``)
+    cases += [(name + " 4 rows a warp", *rest) for name, *rest in SCORE_EDGES]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     max_abs_err = 0.0
     for name, B, p, m, r, cd, xdt, bad in cases:
         U, C, S, ids, X = make_inputs(gen, B, p, m, r, cd, xdt,
                                       quantize_codes, bad_ids=bad)
-        out = score_ops.mtl_score(U, C, S, ids, X)
+        if name.endswith(" 4 rows a warp"):
+            pl = score_rw4_plan(score_kernel, B)
+            out = score_kernel.launch(U, C, S, ids, X, pl=pl)
+            out2 = score_kernel.launch(U, C, S, ids, X, pl=pl)
+            check(pl.rows_per_warp == 4, f"{name}: ran at {pl}")
+        else:
+            pl = score_kernel.plan(B, n_sm)
+            out = score_ops.mtl_score(U, C, S, ids, X)
+            out2 = score_ops.mtl_score(U, C, S, ids, X)
         ref = mtl_score_ref(U, C, S, ids, X)
         torch.cuda.synchronize()
         check(out.shape == (B,) and out.dtype == f32 and
               bool(torch.isfinite(out).all()), f"{name}: bad output")
+        check(torch.equal(out, out2), f"{name}: two launches gave different "
+              f"bytes")
         scale = float(ref.abs().max())
         err = float((out - ref).abs().max())
         line = f"[kernel] {name:30s} max|err| {err:.3e} / max|score| {scale:.3e}"
@@ -2622,13 +2772,19 @@ def main() -> int:
             line += f", vs clamp oracle {err_o:.3e}"
             check(err_o <= KERNEL_RTOL * scale,
                   f"{name}: kernel disagrees with the clamp oracle")
-        log(line + f" (tol {KERNEL_RTOL:g} x max|score|)")
+        log(line + f" (tol {KERNEL_RTOL:g} x max|score|); relaunch bitwise "
+            f"equal; plan {pl}")
         check(err <= KERNEL_RTOL * scale, f"{name}: kernel disagrees with "
               f"the plain version: {err} > {KERNEL_RTOL} * {scale}")
         if not bad and p == P:
             max_abs_err = max(max_abs_err, err)
     torch.cuda.synchronize()
 
+    # the floor: an empty kernel (torch's spin kernel for 0 cycles) in the
+    # same graph harness
+    floor_ms = graph_ms(lambda: torch.cuda._sleep(0))
+    log(f"[time] empty kernel (graph) {floor_ms * 1e3:7.2f} us: the floor of "
+        f"a launch")
     sizes = {"f32": 4, "int8": 1, "fp8": 1}
     by_batch = []
     for B in BATCHES:
@@ -2648,7 +2804,7 @@ def main() -> int:
             row = {"B": B, "code_dtype": cd, "kernel_ms": k_ms,
                    "kernel_graph_ms": g_ms, "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "distinct_ids": n_unique}
+                   "floor_graph_ms": floor_ms, "distinct_ids": n_unique}
             by_batch.append(row)
             log(f"[time] B={B:5d} {cd:4s} kernel {k_ms * 1e3:8.2f} us "
                 f"(graph {g_ms * 1e3:7.2f} us)  plain {p_ms * 1e3:8.2f} us  "
@@ -2803,7 +2959,7 @@ def main() -> int:
           "the solver paths never launched mtl_grad")
 
     # -- 10. the LM serving path -------------------------------------------
-    fa_rows, fa_err, fa_cases = fa_kernel_phase()
+    fa_rows, fa_err, fa_cases, fa_decode = fa_kernel_phase()
     lm = lm_phase(fa_ops)
 
     # -- 11. falcon-mamba-7b served, and ssm_scan ----------------------------
@@ -2830,6 +2986,7 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "floor_graph_ms": floor_ms,
         "shape": {"B": WAVE, "p": P, "m": M, "r": R, "code_dtype": "f32"},
         "by_batch": by_batch,
     }, {
@@ -2886,10 +3043,14 @@ def main() -> int:
         "routes": {"wgmma": {
             "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_wgmma.cu",
-            "ptxas": builds["flash_attention_wgmma"]}, "cuda_cores": {
+            "ptxas": builds["flash_attention_wgmma"]}, "decode": {
+            "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_decode.cu",
+            "ptxas": builds["flash_decode"]}, "cuda_cores": {
             "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
-            "ptxas": builds["flash_attention"]}},
+            "ptxas": builds["flash_attention"],
+            "splits": fa_decode["cuda_core_splits"]}},
         "max_abs_err": fa_err,
         "ms": fa_rows[0]["kernel_ms"],
         "kernel_ms": fa_rows[0]["kernel_ms"],
@@ -2901,6 +3062,31 @@ def main() -> int:
         "shape": fa_rows[0]["shape"],
         "by_shape": fa_rows,
         "cases": fa_cases,
+    }, {
+        "name": "flash_attention_decode",
+        "route": "cuda",
+        "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+        "launches": lm["serve"]["launches_by_route"]["decode"],
+        "launches_by_path": {
+            "LM served wave": lm["serve"]["launches_by_route"]["decode"],
+            "LM f32 anchor": lm["anchor"]["launches_by_route"]["decode"]},
+        "max_abs_err": max(c["max_abs_err"] for c in fa_cases
+                           if c["name"] in (r["shape"]["name"]
+                                            for r in fa_rows[2:])),
+        "ms": fa_rows[2]["kernel_ms"],
+        "kernel_ms": fa_rows[2]["kernel_ms"],
+        "kernel_graph_ms": fa_rows[2]["kernel_graph_ms"],
+        "plain_ms": fa_rows[2]["plain_ms"],
+        "bound_ms": fa_rows[2]["bound_ms"],
+        "bound_by": fa_rows[2]["bound_by"],
+        "library_ms": fa_rows[2]["library_ms"],
+        "shape": fa_rows[2]["shape"],
+        "by_shape": fa_rows[2:],
+        "instantiations": fa_decode["instantiations"],
+        "empty_splits": fa_decode["empty_splits"],
+        "ptxas": builds["flash_decode"],
     }, {
         "name": "ssm_scan",
         "route": "cuda",

@@ -4,10 +4,9 @@
 // src/repro/kernels/flash_attention/kernel.py:85 flash_attention_bhsd
 // (pallas_call :107, body _kernel :31), reached through
 // repro.models.attention.sdpa.  Unlike that kernel, which assumes the
-// positions 0..S-1, this one takes each query's and each key's position,
-// so one kernel serves the prefill (fresh keys, contiguous positions)
-// and the ring-buffer decode (one query against wrapped slots, empty
-// slots at a negative position).  It computes the reference's
+// positions 0..S-1, this one takes each query's and each key's position
+// (fresh keys at contiguous positions, or a ring buffer of wrapped slots
+// with empty slots at a negative position).  It computes the reference's
 // _sdpa_naive with _mask_bias: s = (q . k) * scale in f32, then
 // softcap * tanh(s / softcap) when a softcap is set; key j counts for
 // query i when k_pos[j] >= 0, k_pos[j] <= q_pos[i] (causal) and
@@ -21,36 +20,39 @@
 // int32.
 //
 // Design (simple and deterministic; no tensor cores, no atomics).  One
-// CTA of 8 warps takes one (batch, KV head) and 8 * RPW query rows:
-// bq = 8 * RPW / group query positions times the group heads that share
-// the KV head, so each K/V tile is read once for the whole group.  Warp
-// w owns rows RPW*w..RPW*w+RPW-1 (RPW = 8 rows a warp for prefill, 1 for
-// a decode step, whose Sq * group rows fit in 8); Q lives in shared
-// memory as f32.  Each thread issues all its loads of a tile before it
-// stores any to shared memory, so a tile costs one memory latency.  Keys
-// stream in
-// tiles of 32, one key per lane: the tile's K and V are staged in shared
-// memory as f32 (K rows padded by 4 floats so the lanes' 16-byte reads
-// of 32 different keys hit distinct banks); each lane computes the
-// scores of its key against the warp's 8 rows, the warp reduces the row
-// max and sum with shuffles (fixed butterfly order), and the online
-// softmax state (m, l) and the f32 accumulator acc (8 rows x hd/32
-// columns per lane) stay in registers; P . V broadcasts each key's
-// probability from its lane.  Before a tile is loaded the CTA tests its
-// positions against its rows (__syncthreads_or) and skips a tile in
-// which no key counts for any row: that is the causal and window skip,
-// read from the positions themselves.
+// CTA of 8 warps takes one (batch, KV head) and 64 query rows: bq = 64 /
+// group query positions times the group heads that share the KV head,
+// so each K/V tile is read once for the whole group.  Warp w owns rows
+// 8w..8w+7; Q lives in shared memory as f32.  Each thread issues all its
+// loads of a tile before it stores any to shared memory, so a tile costs
+// one memory latency.  Keys stream in tiles of 32, one key per lane: the
+// tile's K and V are staged in shared memory as f32 (K rows padded by 4
+// floats so the lanes' 16-byte reads of 32 different keys hit distinct
+// banks); each lane computes the scores of its key against the warp's 8
+// rows, the warp reduces the row max and sum with shuffles (fixed
+// butterfly order), and the online softmax state (m, l) and the f32
+// accumulator acc (8 rows x hd/32 columns per lane) stay in registers;
+// P . V broadcasts each key's probability from its lane.  Before a tile
+// is loaded the CTA tests its positions against its rows
+// (__syncthreads_or) and skips a tile in which no key counts for any
+// row: that is the causal and window skip, read from the positions
+// themselves.
 //
-// What bounds it: at the served prefill (B=4, S=5120, gemma2-2b) it
-// does ~1.1e13 f32 operations on CUDA cores (67 TFLOP/s peak), so
-// operations; the design's limit is the shared-memory and shuffle
-// traffic beside the FMAs, and one CTA per SM at hd=256 and RPW=8
-// (131 KB of shared memory).  The tensor-core path (wgmma over TMA-staged bf16
-// tiles) is the next step for speed.  Decode (one query, thousands of
-// slots, B*Hkv = 16 CTAs) is bounded by the bytes of K and V: the keys
-// are split over n_split CTAs (74 KB each at RPW=1, three a SM), each writing its unnormalised (acc, m, l)
-// to a scratch buffer, and a second kernel combines the splits in a
-// fixed order, so a relaunch is bitwise the same.
+// Which calls come here (kernel.route): f32 calls of more than 8 query
+// rows (Sq * group), and bf16 calls of 9 to 63 rows.  bf16 prefill of 64
+// rows or more runs on the tensor cores (csrc/flash_attention_wgmma.cu);
+// every call of at most 8 rows, a decode step, runs on the decode kernel
+// (csrc/flash_decode.cu).
+//
+// What bounds it: at the f32 prefill (B=4, S=5120, gemma2-2b) it does
+// ~1.1e13 f32 operations on CUDA cores (67 TFLOP/s peak), so operations;
+// the design's limit is the shared-memory and shuffle traffic beside the
+// FMAs, and one CTA per SM at hd=256 (131 KB of shared memory).  When
+// the query CTAs alone leave most SMs idle (few query blocks against
+// many keys), the keys are split over n_split CTAs, each writing its
+// unnormalised (acc, m, l) to a scratch buffer, and a second kernel
+// combines the splits in a fixed order, so a relaunch is bitwise the
+// same.
 //
 // The C entry point returns cudaGetLastError() after its launches.
 #include <cuda_bf16.h>
@@ -62,6 +64,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int RPW = 8;                        // query rows a warp
+constexpr int kRowsPerCta = kWarps * RPW;
 constexpr int kTileK = 32;                    // keys per tile, one per lane
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -118,12 +122,12 @@ __device__ __forceinline__ long long row_offset(const Params& p, int b,
   return ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * hd;
 }
 
-template <int HD, int RPW>
+template <int HD>
 constexpr int smem_floats() {
   return kWarps * RPW * HD + kTileK * (HD + 4) + kTileK * HD;
 }
 
-template <typename T, int HD, int RPW>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const Params p) {
   constexpr int kRows = kWarps * RPW;  // query rows per CTA
@@ -316,7 +320,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // Second pass of a split launch: out = sum_z acc_z e^(m_z - M) /
 // sum_z l_z e^(m_z - M) over the splits z in order, M = max_z m_z.
-template <typename T, int HD, int RPW>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_combine(const Params p) {
   constexpr int kRows = kWarps * RPW;
@@ -358,48 +362,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD, int RPW>
+template <typename T, int HD>
 cudaError_t launch_typed(const Params& p, cudaStream_t stream) {
-  const int bytes = smem_floats<HD, RPW>() * static_cast<int>(sizeof(float));
+  const int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
   // the opt-in holds per device, so it is set on every launch (cheap)
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD, RPW>,
+      flash_attention_kernel<T, HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Sq + p.bq - 1) / p.bq, p.B * p.Hkv, p.n_split);
-  flash_attention_kernel<T, HD, RPW><<<grid, kThreads, bytes, stream>>>(p);
+  flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(p);
   if (p.n_split > 1) {
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    flash_attention_combine<T, HD, RPW>
+    flash_attention_combine<T, HD>
         <<<dim3(grid.x, grid.y), kThreads, 0, stream>>>(p);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int RPW>
+template <typename T>
 cudaError_t launch_hd(const Params& p, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch_typed<T, 64, RPW>(p, stream);
-    case 128: return launch_typed<T, 128, RPW>(p, stream);
-    case 256: return launch_typed<T, 256, RPW>(p, stream);
+    case 64: return launch_typed<T, 64>(p, stream);
+    case 128: return launch_typed<T, 128>(p, stream);
+    case 256: return launch_typed<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-template <typename T>
-cudaError_t launch_rows(const Params& p, int rows_per_cta, int hd,
-                        cudaStream_t stream) {
-  return rows_per_cta == kWarps ? launch_hd<T, 1>(p, hd, stream)
-                                : launch_hd<T, 8>(p, hd, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  rows_per_cta: 8 (RPW = 1) or 64 (RPW =
-// 8), at least the group.  window <= 0: no window; softcap <= 0: none.
+// dtype: 0 float32, 1 bfloat16.  rows_per_cta: 64, at least the group.
+// window <= 0: no window; softcap <= 0: none.
 // n_split > 1 needs part: n_split * ceil(Sq/bq) * B*Hkv * rows_per_cta *
 // (hd + 2) floats, bq = rows_per_cta / (H / Hkv).
 int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -410,7 +407,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            float scale, int n_split, int tiles_per_split,
                            cudaStream_t stream) {
   if (Hkv <= 0 || H % Hkv != 0 ||
-      (rows_per_cta != kWarps && rows_per_cta != 8 * kWarps) ||
+      rows_per_cta != kRowsPerCta ||
       H / Hkv > rows_per_cta || n_split < 1 || tiles_per_split < 1 ||
       (n_split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -436,8 +433,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.n_split = n_split;
   p.tiles_per_split = tiles_per_split;
   cudaError_t e =
-      dtype == 0   ? launch_rows<float>(p, rows_per_cta, hd, stream)
-      : dtype == 1 ? launch_rows<__nv_bfloat16>(p, rows_per_cta, hd, stream)
+      dtype == 0   ? launch_hd<float>(p, hd, stream)
+      : dtype == 1 ? launch_hd<__nv_bfloat16>(p, hd, stream)
                    : cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

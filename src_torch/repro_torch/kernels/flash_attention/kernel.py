@@ -1,7 +1,7 @@
 """Build and bind the CUDA flash-attention kernels, and choose between
 them.
 
-Two routes, each its own source with a plain C interface, compiled with
+Three routes, each its own source with a plain C interface, compiled with
 ``nvcc`` into a shared library at its first launch
 (:mod:`repro_torch.kernels._build`) and called through ``ctypes``:
 pointers and the stream go as ``c_void_p``, sizes and flags as
@@ -11,8 +11,11 @@ no device read, no host sync).
 - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 prefill on the
   tensor cores, for bf16 calls with at least ``WGMMA_MIN_ROWS`` query
   rows (Sq * group).
+- ``"decode"`` (``csrc/flash_decode.cu``): every call whose Sq * group
+  query rows fit in ``DECODE_ROWS[-1]`` (a decode step), f32 or bf16:
+  keys split over CTAs and warps, K/V through a ``cp.async`` ring.
 - ``"cuda_cores"`` (``csrc/flash_attention.cu``): f32 FMAs, for every
-  other call (f32, and decode with its key split).
+  other call (f32 prefill, and bf16 calls of 9 to 63 rows).
 
 :func:`plan` picks the route; :func:`launch` assumes the checks of
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention` have
@@ -32,13 +35,21 @@ from .. import _build
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
-SOURCES = {"flash_attention": SOURCE, "flash_attention_wgmma": WGMMA_SOURCE}
-ROUTES = ("wgmma", "cuda_cores")
-HEAD_DIMS = (64, 128, 256)       # both sources' instantiations
+DECODE_SOURCE = CSRC / "flash_decode.cu"
+SOURCES = {"flash_attention": SOURCE, "flash_attention_wgmma": WGMMA_SOURCE,
+           "flash_decode": DECODE_SOURCE}
+ROUTES = ("wgmma", "decode", "cuda_cores")
+HEAD_DIMS = (64, 128, 256)       # every source's instantiations
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROWS_PER_CTA = (8, 64)              # kWarps * RPW in the source, RPW 1 or 8
+ROWS_PER_CTA = 64                   # kWarps * RPW in the CUDA-core source
 TILE_K = 32                         # kTileK in the source
 MIN_TILES_PER_SPLIT = 8
+DECODE_ROWS = (2, 8)                # RMAX, the decode source's instantiations
+DECODE_WARPS = 8                    # kWarps in the decode source
+DECODE_TILE_BYTES = 16384           # kTileBytes: K (and V) bytes of a tile
+DECODE_MAX_KEYS = 2048              # kMaxKeys: keys of one split
+DECODE_CTAS_PER_SM = 1              # of the two that fit (~107 KB each):
+                                    # one a SM read faster (serve_ab --sweep)
 WGMMA_ROWS = 128                    # kRows in the wgmma source
 WGMMA_TILE_K = 64                   # kBc in the wgmma source
 WGMMA_MIN_ROWS = 64                 # one consumer warpgroup's rows
@@ -81,11 +92,31 @@ def _wgmma_entry():
     return fn
 
 
+@functools.cache
+def _decode_entry():
+    fn = _build.load("flash_decode", DECODE_SOURCE).flash_decode_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,      # q, k
+                   ctypes.c_void_p, ctypes.c_void_p,      # v, q_pos
+                   ctypes.c_void_p, ctypes.c_void_p,      # k_pos, out
+                   ctypes.c_void_p, ctypes.c_int,         # part, dtype
+                   ctypes.c_int, ctypes.c_int,            # B, Sq
+                   ctypes.c_int, ctypes.c_int,            # Sk, H
+                   ctypes.c_int, ctypes.c_int,            # Hkv, hd
+                   ctypes.c_int,                          # rows (RMAX)
+                   ctypes.c_int, ctypes.c_int,            # causal, window
+                   ctypes.c_float, ctypes.c_float,        # softcap, scale
+                   ctypes.c_int, ctypes.c_int,            # n_split, tiles
+                   ctypes.c_void_p]                       # stream
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def build() -> None:
-    """Compile and load both libraries now (each is otherwise built at
-    its first launch)."""
+    """Compile and load the three libraries now (each is otherwise built
+    at its first launch)."""
     _entry()
     _wgmma_entry()
+    _decode_entry()
 
 
 class Plan(NamedTuple):
@@ -101,12 +132,21 @@ class Plan(NamedTuple):
 def route(dtype: torch.dtype, Sq: int, H: int, Hkv: int, hd: int) -> str:
     """``"wgmma"`` for a bf16 call with at least ``WGMMA_MIN_ROWS`` query
     rows, a head dim of ``HEAD_DIMS`` and a group that fits the row block;
-    ``"cuda_cores"`` for every other call (f32, decode)."""
+    ``"decode"`` for a call of at most ``DECODE_ROWS[-1]`` query rows (Sq
+    * group) and a head dim of ``HEAD_DIMS``; ``"cuda_cores"`` for every
+    other call (f32 prefill, bf16 calls of 9 to 63 rows)."""
     group = H // Hkv
     if (dtype == torch.bfloat16 and Sq * group >= WGMMA_MIN_ROWS
             and hd in HEAD_DIMS and group <= WGMMA_ROWS):
         return "wgmma"
+    if Sq * group <= DECODE_ROWS[-1] and hd in HEAD_DIMS:
+        return "decode"
     return "cuda_cores"
+
+
+def decode_tile_keys(hd: int, dtype: torch.dtype) -> int:
+    """Keys of one tile of the decode route: ``DECODE_TILE_BYTES`` of K."""
+    return DECODE_TILE_BYTES // (hd * torch.finfo(dtype).bits // 8)
 
 
 def plan(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
@@ -114,24 +154,36 @@ def plan(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
     """Route and grid of one launch.  On the ``"wgmma"`` route a CTA
     takes ``WGMMA_ROWS // group`` queries times the group's heads (126 or
     120 rows at group 9 or 12) against every key tile of
-    ``WGMMA_TILE_K`` keys.  On the ``"cuda_cores"`` route a CTA takes 8
-    rows (one a warp) when the call's Sq * group rows fit in 8 (a decode
-    step), else 64; the keys are split only when the query CTAs alone
-    leave most SMs idle (decode), so that about two CTAs for each of the
-    card's ``n_sm`` SMs read the K/V slots, each split at least
+    ``WGMMA_TILE_K`` keys.  On the ``"decode"`` route a CTA takes every
+    row of one (batch, KV head), ``DECODE_ROWS[0]`` or
+    ``DECODE_ROWS[1]`` of them (the instantiation that holds Sq * group),
+    and one run of ``tiles_per_split`` key tiles of
+    :func:`decode_tile_keys` keys: the runs are cut so that the B * Hkv *
+    n_split CTAs fill ``DECODE_CTAS_PER_SM`` on each of the card's
+    ``n_sm`` SMs, each run at most ``DECODE_MAX_KEYS`` keys.  On the
+    ``"cuda_cores"`` route a CTA takes ``ROWS_PER_CTA`` rows; the keys
+    are split only when the query CTAs alone leave most SMs idle, so that
+    about two CTAs for each SM read the K/V slots, each split at least
     ``MIN_TILES_PER_SPLIT`` tiles long."""
     group = H // Hkv
-    if route(dtype, Sq, H, Hkv, hd) == "wgmma":
+    how = route(dtype, Sq, H, Hkv, hd)
+    if how == "wgmma":
         bq = WGMMA_ROWS // group
         return Plan("wgmma", bq * group, -(-Sq // bq) * B * Hkv, 1,
                     max(1, -(-Sk // WGMMA_TILE_K)))
-    rows = ROWS_PER_CTA[0] if Sq * group <= ROWS_PER_CTA[0] \
-        else ROWS_PER_CTA[1]
-    ctas = -(-Sq // (rows // group)) * B * Hkv
+    if how == "decode":
+        rows = next(r for r in DECODE_ROWS if Sq * group <= r)
+        ctas = B * Hkv
+        tile = decode_tile_keys(hd, dtype)
+        n_tiles = max(1, -(-Sk // tile))
+        want = max(1, DECODE_CTAS_PER_SM * n_sm // ctas)
+        per = min(-(-n_tiles // want), DECODE_MAX_KEYS // tile)
+        return Plan("decode", rows, ctas, -(-n_tiles // per), per)
+    ctas = -(-Sq // (ROWS_PER_CTA // group)) * B * Hkv
     n_tiles = max(1, -(-Sk // TILE_K))
     want = max(1, min(2 * n_sm // ctas, n_tiles // MIN_TILES_PER_SPLIT))
     per = -(-n_tiles // want)
-    return Plan("cuda_cores", rows, ctas, -(-n_tiles // per), per)
+    return Plan("cuda_cores", ROWS_PER_CTA, ctas, -(-n_tiles // per), per)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -142,13 +194,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's shape and dtype, and the route it took."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    how = plan(B, Sq, Sk, H, Hkv, hd, q.dtype,
-               torch.cuda.get_device_properties(q.device).multi_processor_count)
+    how = plan(
+        B, Sq, Sk, H, Hkv, hd, q.dtype,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     if how.route == "wgmma":
         return _launch_wgmma(q, k, v, q_pos, k_pos, causal, window, softcap,
                              scale, how.tiles_per_split), how.route
-    _, rows, ctas, n_split, per = how
-    fn = _entry()
+    route_, rows, ctas, n_split, per = how
+    fn = _decode_entry() if route_ == "decode" else _entry()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         part = None
@@ -165,9 +218,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed with CUDA error {err} "
-            f"(B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hkv={Hkv}, hd={hd}, "
-            f"dtype={q.dtype}, n_split={n_split})")
-    return out, how.route
+            f"(route {route_}, B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hkv={Hkv}, "
+            f"hd={hd}, dtype={q.dtype}, n_split={n_split})")
+    return out, route_
 
 
 def _launch_wgmma(q, k, v, q_pos, k_pos, causal, window, softcap, scale,

@@ -62,7 +62,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the output in q's dtype; a row where no key counts is 0.  On the card
     hd is one of ``kernel.HEAD_DIMS`` and H/Hkv at most 64, and a bf16
     call with at least 64 query rows (Sq * H/Hkv) runs on the tensor
-    cores (``kernel.route``).  The prefix-LM mask (``prefix_len``) is not
+    cores and a call of at most 8 (a decode step) on the decode kernel
+    (``kernel.route``).  The prefix-LM mask (``prefix_len``) is not
     supported."""
     if prefix_len is not None:
         raise NotImplementedError(
@@ -83,9 +84,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in kernel.HEAD_DIMS:
         raise ValueError(f"head dim {hd} is not one of the kernel's "
                          f"{kernel.HEAD_DIMS}")
-    if H // k.shape[2] > kernel.ROWS_PER_CTA[-1]:
+    if H // k.shape[2] > kernel.ROWS_PER_CTA:
         raise ValueError(f"group {H // k.shape[2]} exceeds the kernel's "
-                         f"{kernel.ROWS_PER_CTA[-1]}")
+                         f"{kernel.ROWS_PER_CTA}")
     if Sq == 0 or B == 0:
         return torch.empty_like(q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

@@ -250,9 +250,10 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,dtype,route,rows", [
     (4, 5120, 5120, 8, 4, 256, BF16, "wgmma", 128),      # gemma2 prefill
-    (4, 1, 5152, 8, 4, 256, BF16, "cuda_cores", 8),      # gemma2 decode
-    (4, 1, 4096, 8, 4, 256, BF16, "cuda_cores", 8),      # local decode
+    (4, 1, 5152, 8, 4, 256, BF16, "decode", 2),          # gemma2 decode
+    (4, 1, 4096, 8, 4, 256, BF16, "decode", 2),          # local decode
     (4, 5120, 5120, 8, 4, 256, F32, "cuda_cores", 64),   # the f32 anchor
+    (2, 1, 4612, 8, 4, 256, F32, "decode", 2),           # its decode steps
     (2, 31, 300, 4, 2, 128, BF16, "cuda_cores", 64),     # Sq·group = 62
     (2, 32, 300, 4, 2, 128, BF16, "wgmma", 128),         # Sq·group = 64
     (1, 300, 300, 16, 16, 256, BF16, "wgmma", 128),      # group 1
@@ -260,14 +261,24 @@ BF16, F32 = torch.bfloat16, torch.float32
     (1, 300, 300, 24, 2, 128, BF16, "wgmma", 120),       # group 12
     (1, 6, 40, 24, 2, 64, BF16, "wgmma", 120),           # 72 rows, bq > Sq
     (1, 3, 40, 24, 2, 64, BF16, "cuda_cores", 64),       # 36 rows
+    (1, 4, 300, 4, 2, 128, BF16, "decode", 8),           # Sq·group = 8
+    (1, 3, 300, 6, 2, 128, BF16, "cuda_cores", 64),      # Sq·group = 9
+    (1, 8, 300, 2, 2, 64, F32, "decode", 8),             # Sq·group = 8
+    (1, 9, 300, 2, 2, 64, F32, "cuda_cores", 64),        # Sq·group = 9
+    (1, 2, 300, 2, 2, 64, F32, "decode", 2),             # Sq·group = 2
+    (1, 3, 300, 2, 2, 64, F32, "decode", 8),             # Sq·group = 3
+    (3, 1, 256, 24, 2, 128, F32, "cuda_cores", 64),      # group 12 > 8
 ])
 def test_plan_routes_bf16_prefill_to_the_tensor_cores(B, Sq, Sk, H, Hkv, hd,
                                                       dtype, route, rows):
-    """``kernel.plan``: bf16 calls with at least 64 query rows (Sq·group)
-    go to the tensor cores with a row block of ``128 // group`` queries
-    times the group (126 and 120 rows at group 9 and 12), one CTA per
-    block, KV head and batch row, and every 64-key tile; decode, f32 and
-    fewer rows stay on the CUDA cores."""
+    """``kernel.plan``'s three routes: bf16 calls with at least 64 query
+    rows (Sq·group) go to the tensor cores with a row block of ``128 //
+    group`` queries times the group (126 and 120 rows at group 9 and 12),
+    one CTA per block, KV head and batch row, and every 64-key tile;
+    calls of at most 8 rows (decode), f32 or bf16, go to the decode
+    kernel, whose CTA takes all of them (2 or 8, the instantiation that
+    holds them) and one run of key tiles; every other call (f32 prefill,
+    bf16 of 9 to 63 rows) stays on the CUDA cores, 64 rows a CTA."""
     plan = kernel.plan(B, Sq, Sk, H, Hkv, hd, dtype, n_sm=132)
     assert plan.route == route == kernel.route(dtype, Sq, H, Hkv, hd)
     assert plan.rows == rows
@@ -276,6 +287,12 @@ def test_plan_routes_bf16_prefill_to_the_tensor_cores(B, Sq, Sk, H, Hkv, hd,
         assert plan.n_split == 1
         assert plan.ctas == -(-Sq // (128 // group)) * B * Hkv
         assert plan.tiles_per_split == -(-Sk // 64)
+    if route == "decode":
+        tile = kernel.decode_tile_keys(hd, dtype)
+        assert plan.ctas == B * Hkv
+        assert plan.tiles_per_split * tile <= kernel.DECODE_MAX_KEYS
+        assert (plan.n_split - 1) * plan.tiles_per_split * tile < Sk \
+            <= plan.n_split * plan.tiles_per_split * tile
 
 
 @pytest.mark.parametrize("case", chip_smoke.FA_CASES, ids=lambda c: c[0])
@@ -290,7 +307,7 @@ def test_cpu_dispatch_counts_no_launch_by_route():
     q, k, v = _port(_qkv(1, 64, 64, 4, 2, 64, seed=5), "bf16")
     pos = _arange_pos(1, 64)
     before = dict(ops.flash_attention.launches_by_route)
-    assert set(before) == {"wgmma", "cuda_cores"}
+    assert set(before) == {"wgmma", "decode", "cuda_cores"}
     flash_attention(q, k, v, q_pos=pos, k_pos=pos)
     assert ops.flash_attention.launches_by_route == before
 
@@ -408,3 +425,198 @@ def test_tile_skip_rule_against_brute_force(name, bq, window):
                     assert (st == port_ref_mod.WHOLE) == (
                         block.shape[1] == tile and bool(block.all()))
     assert int((states == port_ref_mod.SKIP).sum()) > 0
+
+
+# --- the decode route (csrc/flash_decode.cu) --------------------------------
+import decode_order  # noqa: E402
+
+FA_DECODE_CASES = [c for c in chip_smoke.FA_CASES
+                   if chip_smoke.fa_route(c) == "decode"]
+
+
+def _np32(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("B,Sq,slots,H,Hkv,hd,dt,window,softcap", [
+    (3, 1, 300, 4, 2, 64, "f32", 64, 50.0),      # the window empties splits
+    (2, 1, 1000, 8, 4, 128, "bf16", None, 50.0),
+    (2, 3, 256, 8, 4, 256, "f32", 128, None),    # 6 rows: the 8-row kernel
+    (2, 1, 500, 16, 2, 64, "bf16", 200, 30.0),   # group 8
+    (2, 1, 777, 8, 4, 128, "f32", None, None),   # 777 slots: a ragged tile
+    (1, 2, 450, 12, 3, 128, "f32", 100, 30.0),   # 8 rows over 2 queries
+])
+def test_decode_order_matches_naive_sdpa_on_ring_positions(
+        B, Sq, slots, H, Hkv, hd, dt, window, softcap):
+    """The decode kernel's arithmetic order (``decode_order``: its key
+    partition over splits, warps and lane groups, per-warp online softmax
+    and the two fixed-order merges), emulated in plain torch on a wrapped
+    ring with empty slots, against the reference's ``_sdpa_naive`` with
+    ``_mask_bias``, at the reference's tolerances."""
+    last = np.array([slots + 40 + 37 * b for b in range(B)])
+    written = [slots if b % 2 == 0 else slots // 2 for b in range(B)]
+    q_pos = np.stack([last - Sq + 1 + i for i in range(Sq)], 1).astype(np.int32)
+    k_pos = _ring(B, slots, last, written)
+    arrays = _qkv(B, Sq, slots, H, Hkv, hd, seed=7)
+    q, k, v = _port(arrays, dt)
+    got = decode_order.decode(q, k, v, torch.from_numpy(q_pos),
+                              torch.from_numpy(k_pos), window=window,
+                              softcap=softcap)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    naive = j_naive(*_jax(arrays, dt), jnp.asarray(q_pos), jnp.asarray(k_pos),
+                    window=window, softcap=softcap)
+    np.testing.assert_allclose(_np32(got), _np32(naive), atol=TOL[dt],
+                               rtol=TOL[dt])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,hd,dt", [
+    (2, 8, 300, 4, 64, "f32"), (1, 2, 1100, 4, 128, "bf16"),
+    (2, 1, 600, 2, 256, "f32"),
+])
+def test_decode_order_matches_reference_oracle_and_interpret_kernel(
+        B, Sq, Sk, H, hd, dt):
+    """Without the causal mask (so the reference's kernel, which takes the
+    positions 0..S-1, computes the same function) the emulated decode
+    order agrees with the reference's oracle and its Pallas kernel in
+    interpret mode on every key of the cache."""
+    arrays = _qkv(B, Sq, Sk, H, H, hd, seed=8)
+    q, k, v = _port(arrays, dt)
+    got = decode_order.decode(q, k, v, _arange_pos(B, Sq), _arange_pos(B, Sk),
+                              causal=False)
+    jq, jk, jv = _jax(arrays, dt)
+    oracle = j_oracle(_bhsd(jq, B, Sq, H, hd), _bhsd(jk, B, Sk, H, hd),
+                      _bhsd(jv, B, Sk, H, hd), causal=False)
+    oracle = np.asarray(oracle, np.float32).reshape(
+        B, H, Sq, hd).transpose(0, 2, 1, 3)
+    kern = np.asarray(j_flash(jq, jk, jv, causal=False, interpret=True),
+                      np.float32)
+    np.testing.assert_allclose(_np32(got), oracle, atol=TOL[dt], rtol=TOL[dt])
+    np.testing.assert_allclose(_np32(got), kern, atol=TOL[dt], rtol=TOL[dt])
+
+
+def test_decode_order_with_empty_splits_warps_and_rows():
+    """A ring where the window leaves whole splits and warps with no key
+    that counts, and a batch row whose every slot is empty: the emulated
+    order matches the reference's naive path where keys count and gives
+    0 on the empty row, with no NaN from the merges of empty warps and
+    splits."""
+    B, Sq, slots, H, Hkv, hd, window = 3, 1, 2000, 4, 2, 64, 50
+    last = np.array([2100, 2500, 2300])
+    k_pos = _ring(B, slots, last, written=[2000, 2000, 0])
+    q_pos = last[:, None].astype(np.int32)
+    arrays = _qkv(B, Sq, slots, H, Hkv, hd, seed=9)
+    q, k, v = _port(arrays, "f32")
+    pl = kernel.plan(B, Sq, slots, H, Hkv, hd, q.dtype, n_sm=132)
+    geo = decode_order.geometry(pl.rows, hd, q.dtype)
+    keys = decode_order.key_partition(pl, geo)
+    ok = key_mask(torch.from_numpy(q_pos), torch.from_numpy(k_pos), True,
+                  window).any(1)                              # (B, Sk)
+    live = torch.zeros(B, keys.numel(), dtype=torch.bool)
+    live[:, :slots] = ok
+    by_split = live[:, keys.reshape(pl.n_split, -1)].any(-1)  # (B, splits)
+    by_warp = live[:, keys.transpose(0, 2).reshape(
+        kernel.DECODE_WARPS, -1)].any(-1)                     # (B, warps)
+    assert pl.n_split > 1
+    assert bool((~by_split[:2]).any()) and bool((~by_warp[:2]).any())
+    assert not bool(by_split[2].any())
+    got = decode_order.decode(q, k, v, torch.from_numpy(q_pos),
+                              torch.from_numpy(k_pos), window=window)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    naive = j_naive(*_jax(arrays, "f32"), jnp.asarray(q_pos),
+                    jnp.asarray(k_pos), window=window, softcap=None)
+    np.testing.assert_allclose(got[:2].numpy(), np.asarray(naive)[:2],
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", [c for c in FA_DECODE_CASES
+                                  if c[7] == BF16 or c[3] < 4096],
+                         ids=lambda c: c[0])
+def test_decode_order_passes_the_card_check_on_phase_10_cases(case):
+    """On each phase-10 decode case (of the four at the served cache
+    sizes, the two bf16 ones the wave runs), with the card's inputs, the
+    emulated decode order passes ``chip_smoke``'s attention check against
+    the plain version (``fa_error``/``fa_passes`` at ``FA_TOL``, per
+    output row) and agrees with the reference's naive path at the
+    reference's tolerance."""
+    name, B, Sq, Sk, H, Hkv, hd, dtype, mode, window, softcap = case
+    q, k, v, q_pos, k_pos = chip_smoke.fa_inputs(case, dev="cpu")
+    kw = dict(q_pos=q_pos, k_pos=k_pos, causal=True, window=window,
+              softcap=softcap)
+    got = decode_order.decode(q, k, v, q_pos, k_pos, window=window,
+                              softcap=softcap)
+    ref, ref_abs = port_ref(q, k, v, **kw), port_ref(q, k, v.abs(), **kw)
+    assert chip_smoke.fa_passes(*chip_smoke.fa_error(got, ref, ref_abs, dtype),
+                                dtype)
+    dt = "bf16" if dtype == BF16 else "f32"
+    naive = j_naive(*(jnp.asarray(_np32(t), J_DT[dt]) for t in (q, k, v)),
+                    jnp.asarray(q_pos.numpy()), jnp.asarray(k_pos.numpy()),
+                    window=window, softcap=softcap)
+    np.testing.assert_allclose(_np32(got), _np32(naive), atol=TOL[dt],
+                               rtol=TOL[dt])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,dtype", [
+    (4, 1, 5152, 8, 4, 256, BF16), (4, 1, 4096, 8, 4, 256, BF16),
+    (2, 1, 4612, 8, 4, 256, F32), (2, 3, 256, 8, 4, 256, F32),
+    (3, 1, 333, 4, 4, 64, F32), (2, 1, 500, 16, 2, 64, BF16),
+    (1, 2, 700, 8, 2, 128, BF16), (64, 1, 8192, 16, 16, 128, BF16),
+])
+def test_decode_plan_covers_every_key_and_row_once(B, Sq, Sk, H, Hkv, hd,
+                                                   dtype):
+    """Brute force over the decode launch on 132 SMs: the (split, tile,
+    warp, step, group) -> key map is one to one onto the split runs'
+    slots, which hold every key of the cache once and no split past it;
+    each key's lanes hold every head-dim element once; a CTA's rows hold
+    each (query, head) of its KV group once."""
+    pl = kernel.plan(B, Sq, Sk, H, Hkv, hd, dtype, n_sm=132)
+    assert pl.route == "decode"
+    geo = decode_order.geometry(pl.rows, hd, dtype)
+    assert geo.tk == geo.kpw * kernel.DECODE_WARPS == \
+        geo.ns * geo.kps * kernel.DECODE_WARPS
+    assert geo.lpk * geo.kps == 32 and geo.lpk * geo.epl == hd
+    keys = decode_order.key_partition(pl, geo).flatten()
+    assert torch.equal(keys.sort().values, torch.arange(keys.numel()))
+    n_keys = pl.n_split * pl.tiles_per_split * geo.tk
+    assert keys.numel() == n_keys and n_keys - geo.tk * pl.tiles_per_split < Sk
+    assert Sk <= n_keys and pl.tiles_per_split * geo.tk <= \
+        kernel.DECODE_MAX_KEYS
+    dims = decode_order.lane_dims(geo, hd).flatten()
+    assert torch.equal(dims.sort().values, torch.arange(hd))
+    group = H // Hkv
+    assert Sq * group <= pl.rows
+    pairs = {(r // group, r % group) for r in range(Sq * group)}
+    assert pairs == {(i, g) for i in range(Sq) for g in range(group)}
+
+
+def test_phase_10_decode_cases_reach_every_instantiation_and_an_empty_split():
+    """Phase 10's decode cases, on 132 SMs, reach every (dtype, hd, rows)
+    instantiation of the decode source, and some split of theirs holds no
+    key that counts (``chip_smoke.fa_decode_shape``, which phase 10
+    checks on the card)."""
+    reached, empty = set(), 0
+    for case in FA_DECODE_CASES:
+        shape, n_empty = chip_smoke.fa_decode_shape(kernel, case, 132)
+        reached.add(shape)
+        empty += n_empty
+    assert reached == {(d, hd, rows) for d in ("float32", "bfloat16")
+                       for hd in kernel.HEAD_DIMS
+                       for rows in kernel.DECODE_ROWS}
+    assert empty > 0
+
+
+def test_phase_10_cuda_core_split_cases_split_with_an_empty_split():
+    """Phase 10's CUDA-core split cases (``chip_smoke.FA_SPLIT``), on 132
+    SMs, take the CUDA-core route with their keys split over CTAs (the
+    combine pass merges them), and some split of theirs holds no key that
+    counts (``chip_smoke.fa_split``, which phase 10 checks on the card)."""
+    cases = [c for c in chip_smoke.FA_CASES if c[0] in chip_smoke.FA_SPLIT]
+    assert len(cases) == len(chip_smoke.FA_SPLIT)
+    splits = [chip_smoke.fa_split(kernel, c, 132) for c in cases]
+    for case, (n_split, _) in zip(cases, splits):
+        name, B, Sq, Sk, H, Hkv, hd, dtype, *_ = case
+        assert chip_smoke.fa_route(case) == "cuda_cores" == \
+            kernel.plan(B, Sq, Sk, H, Hkv, hd, dtype, 132).route
+        assert n_split > 1, name
+    assert any(empty > 0 for _, empty in splits)

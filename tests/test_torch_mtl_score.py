@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src_torch"))
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src_torch"))
+sys.path.append(str(ROOT))               # chip_smoke.py
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -161,3 +163,125 @@ def test_plain_version_on_cpu_equals_ref():
     np.testing.assert_array_equal(
         ops.mtl_score(a["U"], a["C"], a["S"], a["ids"], a["X"]).numpy(),
         mtl_score_ref(a["U"], a["C"], a["S"], a["ids"], a["X"]).numpy())
+
+
+# --- the kernel's plan and summation order (csrc/mtl_score.cu) -------------
+import score_order  # noqa: E402
+from repro_torch.kernels.mtl_score import kernel as skernel  # noqa: E402
+
+
+@pytest.mark.parametrize("B,plan", [
+    (64, (8, 1, 1, 64)),          # a tail wave: 8 warps a row
+    (256, (8, 1, 1, 256)),        # the served wave: 256 CTAs
+    (4096, (2, 4, 16, 256)),      # 4 rows a warp share U's loads
+    (33, (8, 1, 1, 33)),
+    (300, (4, 1, 2, 150)),        # 150 CTAs cover the SMs
+    (100000, (1, 4, 32, 3125)),
+])
+def test_plan_at_phase_3_shapes(B, plan):
+    """``kernel.plan`` on 132 SMs: 4 rows a warp with the fewest warps a
+    row whose CTAs cover the SMs, else one row a warp and the fewest warps
+    a row that do, or all 8 warps."""
+    pl = skernel.plan(B, 132)
+    assert tuple(pl) == plan
+    assert pl.rows_per_cta == skernel.WARPS // pl.warps_per_row \
+        * pl.rows_per_warp
+    assert pl.ctas == -(-B // pl.rows_per_cta)
+    assert pl.ctas >= 132 or pl.warps_per_row == skernel.WARPS
+
+
+@pytest.mark.parametrize("p", [2048, 2047, 1001, 300, 100, 37, 5, 1, 5000])
+@pytest.mark.parametrize("x_bytes", [4, 2])
+@pytest.mark.parametrize("B", [64, 256, 4096])
+def test_lane_elements_cover_each_row_once(p, x_bytes, B):
+    """Brute force: at the plan for B on 132 SMs, the elements the
+    row's lanes add (``kernel.lane_elements``, the kernel's cut) hold
+    every index of the row once, for 16-byte aligned rows and for
+    unaligned ones; with aligned rows lane g's whole chunks come first,
+    the chunks g, g + n_lanes, ... each in element order."""
+    pl = skernel.plan(B, 132)
+    vec = 16 // x_bytes
+    for aligned in (True, False):
+        lanes = skernel.lane_elements(p, x_bytes, pl, aligned)
+        assert len(lanes) == pl.warps_per_row * 32
+        flat = sorted(j for elems in lanes for j in elems)
+        assert flat == list(range(p))
+    lanes = skernel.lane_elements(p, x_bytes, pl, True)
+    n_lanes, n_vec = len(lanes), p // vec
+    for g, elems in enumerate(lanes):
+        chunks = list(range(g, n_vec, n_lanes))
+        assert elems[:vec * len(chunks)] == [
+            j for c in chunks for j in range(c * vec, c * vec + vec)]
+
+
+@pytest.mark.parametrize("B,p,r,m,code_dtype,x_dtype", [
+    (256, 2048, 4, 300, "f32", "f32"),      # the served wave
+    (64, 2048, 4, 50, "int8", "f32"),
+    (4096, 2048, 4, 100, "fp8", "f32"),
+    (256, 2048, 4, 40, "f32", "bf16"),
+    (77, 2047, 3, 50, "fp8", "bf16"),       # rows aligned or not
+    (40, 1001, 4, 20, "int8", "bf16"),
+    (300, 5, 4, 9, "int8", "bf16"),         # p inside one warp's copy
+    (64, 100, 4, 9, "f32", "f32"),
+] + [(100, 300, r, 9, ("f32", "int8", "fp8")[r % 3],
+      "f32" if r % 2 else "bf16") for r in range(1, 9)])
+def test_kernel_summation_order_matches_jax_kernel(B, p, r, m, code_dtype,
+                                                    x_dtype):
+    """The scoring kernel's arithmetic order (``score_order``: each lane's
+    elements from ``kernel.lane_elements``, the warp's shuffle tree, the
+    warps in order, the r-term dot), emulated in plain torch, against the
+    reference's Pallas kernel in interpret mode at the scorer's 2e-5.  U
+    is scaled by p^-1/2, as the served basis (orthonormal columns) and
+    phase 3's inputs are, so that the projections are O(1) at every p."""
+    U, Cf, ids, X = _inputs(B, p, r, m, seed=11)
+    U = (U / np.sqrt(p)).astype(np.float32)
+    ids[::5] = np.asarray([-4, m, m + 9, -1, 0] * B, np.int32)[:len(ids[::5])]
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[x_dtype]
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[x_dtype]
+    Ct, St = quantize_codes(_t(Cf), code_dtype)
+    got = score_order.score(_t(U).to(tdt), Ct, St, _t(ids), _t(X).to(tdt))
+    Cj, Sj = jmtl.quantize_codes(Cf, code_dtype)
+    want = jmtl.mtl_score(jnp.asarray(U, jdt), Cj, Sj, ids,
+                          jnp.asarray(X, jdt), bb=256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **TOL)
+
+
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("case", chip_smoke.SCORE_EDGES, ids=lambda c: c[0])
+def test_kernel_order_at_four_rows_a_warp_matches_jax_kernel(case):
+    """Phase 3 launches each of its edge cases a second time at 4 rows a
+    warp (``chip_smoke.score_rw4_plan``: 2 warps a row, 16 rows a CTA,
+    the plan of waves of 528 rows or more): that plan covers the B rows
+    in its CTAs, and the kernel's order at it (``score_order``) agrees
+    with the reference's Pallas kernel in interpret mode at 2e-5."""
+    name, B, p, m, r, code_dtype, tdt, bad = case
+    pl = chip_smoke.score_rw4_plan(skernel, B)
+    assert pl.rows_per_warp == 4 and pl.warps_per_row == 2
+    assert pl.rows_per_cta == skernel.WARPS // 2 * 4
+    assert (pl.ctas - 1) * pl.rows_per_cta < B <= pl.ctas * pl.rows_per_cta
+    U, Cf, ids, X = _inputs(B, p, r, m, seed=13)
+    U = (U / np.sqrt(p)).astype(np.float32)
+    if bad:
+        ids[::5] = np.asarray([-4, m, m + 9, -1, 0] * B,
+                              np.int32)[:len(ids[::5])]
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[tdt]
+    Ct, St = quantize_codes(_t(Cf), code_dtype)
+    got = score_order.score(_t(U).to(tdt), Ct, St, _t(ids), _t(X).to(tdt),
+                            pl=pl)
+    Cj, Sj = jmtl.quantize_codes(Cf, code_dtype)
+    want = jmtl.mtl_score(jnp.asarray(U, jdt), Cj, Sj, ids,
+                          jnp.asarray(X, jdt), bb=256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **TOL)
+
+
+def test_four_rows_a_warp_cases_leave_a_warp_part_of_its_rows():
+    """Some edge case's B is no multiple of 4, so at 4 rows a warp its
+    last warp holds fewer rows than 4, and some case has rows that are
+    not 16-byte aligned, as phase 3 needs at that plan."""
+    assert any(c[1] % 4 for c in chip_smoke.SCORE_EDGES)
+    assert any(c[2] * torch.finfo(c[6]).bits // 8 % 16
+               for c in chip_smoke.SCORE_EDGES)
