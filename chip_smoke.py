@@ -43,12 +43,26 @@ raises and the script exits non-zero:
    ``benchmarks/fig1_regression.py``;
 9. solver path D, stochastic rounds at the reference's large-n spec
    (``solver_bench.py`` FULL2D: p=200, m=32, n=20000, r=5, one data
-   shard): the §5 data drawn on the card by the port's threefry
+   shard; phase 9b runs it at four): the §5 data drawn on the card by the port's threefry
    generator, the five stochastic solvers (mini-batches of 500 rows,
    local steps through the ``prox_step`` kernel) and AltMin on the
    logistic copy, each held to its full-batch ledger, to the bitwise
    ``B=n, L=1`` anchor, to the port's CPU solve on the same draws
    and (squared loss, and AltMin) to ``W=0``'s excess risk;
+9b. the mesh runtime: ``init_cluster`` brings up a 1-rank NCCL group on a
+   file store in a temporary directory and ``task_mesh`` a mesh over it;
+   path B's DGSP (10 rounds) and path D's stochastic ProxGD (10 rounds,
+   B=500, L=4) on ``backend="mesh"``, each bitwise equal to the sim's W
+   with the same ledger, ``collective_floats_per_chip`` equal to the
+   ledger's worker->master floats times m, and as many ``mtl_grad`` /
+   ``prox_step`` launches as the sim's, each solve's time a round on the
+   mesh beside the sim's; path D at four data shards through the sim's
+   2-D emulation (``solver_bench.py`` bench_2d: ProxGD 10 rounds and
+   DGSP 6 on the Gram path within 1e-4 of one shard with the same
+   ledger and no data floats, and the stochastic ProxGD at B=500, L=4
+   below ``W=0``'s excess risk); the sharded code table on the serve
+   configuration, bitwise equal to the unsharded server, through
+   ``mtl_score``; the group is torn down at the end;
 10. the LM serving path of gemma2-2b at full width: (a) the
    ``flash_attention`` kernels against their plain version at the served
    shapes (prefill B=4 S=5120 global and with the 4096 window binding,
@@ -104,7 +118,7 @@ raises and the script exits non-zero:
    decode times, and a ``torch.profiler`` window over one wave.
 
 Phase 3 also checks the seeded sampler on the card against the CPU,
-bit for bit, and times a draw.  Phases 4, 6-9 and the served waves and
+bit for bit, and times a draw.  Phases 4, 6-9b and the served waves and
 f32 anchors of 10 and 11 each set the launch counters to 0 just before
 they run and read them just after.  It prints a ``{"kernels": [...]}`` line and,
 last, the contract line ``{"ok": true, "device": {...}}``.  Without a
@@ -1122,6 +1136,208 @@ def path_d(grad_ops, prox_ops):
         log(f"[path D] {label} card vs CPU: max|dW| {err:.3e} (tol "
             f"{tol:.3e}); ledgers equal; CPU {t_cpu:.2f} s")
     out["t_data_s"] = t_data
+    return out, {"probs": probs, "Wstar": Wstar, "Sigma": Sigma}
+
+
+# ---------------------------------------------------------------------------
+# phase 9b, the mesh runtime on a 1-rank NCCL group
+# ---------------------------------------------------------------------------
+MESH_D = 4                       # path D's data shards (solver_bench.py:133)
+D2_SOLVES = (("proxgd", {"rounds": 10, "lam": 0.01}),   # bench_2d's pair
+             ("dgsp", {"rounds": 6}))
+D2_W_TOL = 1e-4                  # bench_2d's bound (solver_bench.py:160)
+
+
+MESH_REPS = 3                    # timed solves of each configuration
+
+
+def alternating_solves(solve, prob, rounds, configs, kernel):
+    """Time solves of ``rounds`` rounds under each configuration (a dict
+    of ``solve`` arguments by name), after a 1-round warm-up of each,
+    the configurations taking turns, in alternating order, ``MESH_REPS``
+    times.  Returns ``{name: (result, seconds a round of each solve,
+    kernel launches a solve)}``; every solve of a configuration must give
+    the same W bit for bit and launch the kernel as often."""
+    for kw in configs.values():
+        timed_solve(solve, prob, rounds=1, **kw)
+    out = {name: [None, [], set()] for name in configs}
+    for rep in range(MESH_REPS):
+        for name in (list(configs) if rep % 2 == 0
+                     else list(reversed(configs))):
+            n0 = kernel.launches
+            res, secs = timed_solve(solve, prob, rounds=rounds,
+                                    **configs[name])
+            row = out[name]
+            row[2].add(kernel.launches - n0)
+            if row[0] is None:
+                row[0] = res
+            check(torch.equal(res.W, row[0].W) and len(row[2]) == 1,
+                  f"{name}: a repeated solve gave other bytes or launches")
+            row[1].append(secs / rounds)
+    return {name: (res, per_round, launches.pop())
+            for name, (res, per_round, launches) in out.items()}
+
+
+def round_line(per_round) -> str:
+    """'median ms (min-max)' of seconds a round."""
+    return (f"{statistics.median(per_round) * 1e3:.3f} ms "
+            f"({min(per_round) * 1e3:.3f}-{max(per_round) * 1e3:.3f})")
+
+
+def mesh_phase(grad_ops, prox_ops, score_ops, path_d_data):
+    """The mesh runtime on the card: a 1-rank NCCL group on a file store
+    (``init_cluster``) and a ``task_mesh`` over it, path B's DGSP and
+    path D's stochastic ProxGD on ``backend="mesh"`` against the sim,
+    path D at D=4 through the sim's 2-D emulation against D=1, and the
+    sharded code table against the unsharded server."""
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.core.methods import MTLProblem
+    from repro_torch.data.synthetic import excess_risk_regression
+    from repro_torch.runtime import init_cluster, task_mesh
+    from repro_torch.serve.mtl import FactoredModel, MTLServer
+    out = {}
+    store = tempfile.mkdtemp(prefix="mesh_store_")
+    try:
+        t0 = time.perf_counter()
+        init_cluster(f"file://{store}/store", 1, 0, timeout_s=120)
+        mesh = task_mesh()
+        check(str(dist.get_backend()) == "nccl" and
+              mesh.device_type == "cuda" and dist.get_world_size() == 1,
+              f"mesh: want a 1-rank NCCL group, got {dist.get_backend()}")
+        log(f"[mesh] 1-rank {dist.get_backend()} group on a file store, "
+            f"mesh {tuple(mesh.mesh_dim_names)} of {mesh.size()} device(s), "
+            f"up in {time.perf_counter() - t0:.2f} s")
+        grad_ops.task_gradients.launches = 0      # count this path only
+        prox_ops.prox_step.launches = 0
+        score_ops.mtl_score.launches = 0
+
+        def on_both(label, prob, method, rounds, kernel, kw):
+            """The same solve on the sim and on the mesh: W bitwise, the
+            same ledger, the mesh's counter by the rule, the same
+            kernel launches (above 0); each one's time a round."""
+            runs = alternating_solves(
+                repro_torch.solve, prob, rounds,
+                {"sim": dict(method=method, **kw),
+                 "mesh": dict(method=method, backend="mesh", mesh=mesh,
+                              **kw)}, kernel)
+            (sim, r_sim, k_sim), (msh, r_msh, k_msh) = \
+                runs["sim"], runs["mesh"]
+            want = msh.comm.floats_by_direction("worker->master") * prob.m
+            check(torch.equal(msh.W, sim.W) and
+                  msh.comm.ledger() == sim.comm.ledger(),
+                  f"mesh {label}: W or ledger differs from the sim's")
+            check(msh.extras["collective_floats_per_chip"] == want > 0 and
+                  msh.extras["data_collective_floats_per_chip"] == 0,
+                  f"mesh {label}: collective floats "
+                  f"{msh.extras['collective_floats_per_chip']}, want {want}")
+            check(k_msh == k_sim > 0, f"mesh {label}: {k_msh} kernel "
+                  f"launches a solve on the mesh, {k_sim} on the sim")
+            log(f"[mesh] {label}: W bitwise the sim's, ledgers equal, "
+                f"{want} collective floats; {k_msh} {kernel.__name__} "
+                f"launches a solve on each; a round {round_line(r_msh)} on "
+                f"the mesh, {round_line(r_sim)} on the sim (median and "
+                f"range of {MESH_REPS} {rounds}-round solves each, in "
+                f"turns)")
+            return {"rounds": rounds, "launches_a_solve": k_msh,
+                    "collective_floats_per_chip": want,
+                    "mesh_round_s": r_msh, "sim_round_s": r_sim}
+
+        # path B: FULL logistic, DGSP, raw gradients through mtl_grad
+        Xs, ys, _, _ = sim_data(**FULL, seed=SEED, device="cuda",
+                                task="classification")
+        prob_b = MTLProblem.make(Xs, ys, "logistic", A=2.0, r=FULL["r"])
+        out["B dgsp"] = on_both("path B dgsp/logistic", prob_b, "dgsp", 10,
+                                grad_ops.task_gradients, {})
+        # path D: FULL2D squared raw, stochastic ProxGD through prox_step
+        probs = path_d_data["probs"]
+        sgd = dict(lam=0.01, batch_size=D_BATCH, local_steps=4, batch_seed=0)
+        out["D proxgd"] = on_both(
+            f"path D proxgd/squared B={D_BATCH} L=4", probs["squared"],
+            "proxgd", 10, prox_ops.prox_step, sgd)
+
+        # path D at D=4 through the sim's 2-D emulation, as bench_2d runs
+        # it (the Gram path); and the stochastic ProxGD there, each shard
+        # drawing its own 125 rows through prox_step
+        sq = probs["squared"]
+        gram = MTLProblem.make(sq.Xs, sq.ys, "squared", A=2.0, r=sq.r)
+        for method, kw in D2_SOLVES:
+            kw = dict(kw)
+            rounds = kw.pop("rounds")
+            runs = alternating_solves(
+                repro_torch.solve, gram, rounds,
+                {"D=1": dict(method=method, **kw),
+                 f"D={MESH_D}": dict(method=method, data_shards=MESH_D,
+                                     **kw)}, grad_ops.task_gradients)
+            (one, r1, _), (four, r4, _) = runs["D=1"], runs[f"D={MESH_D}"]
+            err = float((one.W - four.W).abs().max())
+            check(err < D2_W_TOL and one.comm.ledger() == four.comm.ledger()
+                  and four.extras["data_shards"] == MESH_D and
+                  four.extras["data_collective_floats_per_chip"] == 0 and
+                  four.extras["collective_floats_per_chip"] == 0,
+                  f"path D {method} at D={MESH_D}: max|dW| {err} vs D=1")
+            out[f"D{MESH_D} {method}"] = {
+                "rounds": rounds, "max_abs_diff_vs_d1": err,
+                "d1_round_s": r1, "d4_round_s": r4}
+            log(f"[mesh] path D {method}/squared (Gram) at D={MESH_D} on "
+                f"the sim's emulation: max|W - W_D1| {err:.3e} (tol "
+                f"{D2_W_TOL:g}), ledger = D=1's, 0 data floats; a round "
+                f"{round_line(r4)} at D={MESH_D}, {round_line(r1)} at D=1")
+        runs = alternating_solves(
+            repro_torch.solve, sq, 10,
+            {"D=1": dict(method="proxgd", **sgd),
+             f"D={MESH_D}": dict(method="proxgd", data_shards=MESH_D,
+                                 **sgd)}, prox_ops.prox_step)
+        (one, r1, k1), (four, r4, k4) = runs["D=1"], runs[f"D={MESH_D}"]
+        e4, e0 = (float(excess_risk_regression(W, path_d_data["Wstar"],
+                                               path_d_data["Sigma"]))
+                  for W in (four.W, torch.zeros_like(four.W)))
+        check(four.comm.ledger() == one.comm.ledger() and k1 == 10 * 4 and
+              k4 == 10 * 4 * MESH_D and bool(torch.isfinite(four.W).all())
+              and e4 < e0,
+              f"path D stochastic proxgd at D={MESH_D}: {k4} prox_step "
+              f"launches a solve, excess risk {e4} vs W=0's {e0}")
+        out[f"D{MESH_D} proxgd B={D_BATCH} L=4"] = {
+            "d1_round_s": r1, "d4_round_s": r4, "excess_risk": e4,
+            "zero_risk": e0, "prox_step_launches_a_solve": k4}
+        log(f"[mesh] path D proxgd/squared B={D_BATCH} L=4 at D={MESH_D} on "
+            f"the emulation: ledger = D=1's, {k4} prox_step launches a "
+            f"solve ({k1} at D=1), excess risk {e4:.4f} (W=0 {e0:.4f}); a "
+            f"round {round_line(r4)} at D={MESH_D}, {round_line(r1)} at D=1")
+
+        # the sharded code table on the serve configuration
+        rng = np.random.default_rng(SEED)
+        A = rng.standard_normal((P, R))
+        W = (A @ rng.standard_normal((M, R)).T
+             + NOISE * rng.standard_normal((P, M))).astype(np.float32)
+        ids = torch.from_numpy(rng.integers(0, M, N_REQUESTS)
+                               .astype(np.int32)).cuda()
+        X = torch.from_numpy(rng.standard_normal((N_REQUESTS, P))
+                             .astype(np.float32)).cuda()
+        model = FactoredModel.from_W(W, R)
+        plain_scores, v1 = MTLServer(model, batch_size=WAVE).score(ids, X)
+        n0 = score_ops.mtl_score.launches
+        sharded = MTLServer(model, batch_size=WAVE, mesh=mesh)
+        scores, v2 = sharded.score(ids, X)
+        torch.cuda.synchronize()
+        waves = score_ops.mtl_score.launches - n0
+        check(torch.equal(scores, plain_scores) and v1 == v2 and
+              waves == N_REQUESTS // WAVE,
+              f"sharded table: scores differ from the unsharded server's "
+              f"or {waves} launches")
+        out["sharded table"] = {"requests": N_REQUESTS, "waves": waves}
+        log(f"[mesh] sharded code table (p={P} m={M} r={R}, waves of "
+            f"{WAVE}): {N_REQUESTS} scores bitwise the unsharded server's, "
+            f"version {v2}, {waves} mtl_score launches")
+        out["launches"] = {"mtl_grad": grad_ops.task_gradients.launches,
+                           "prox_step": prox_ops.prox_step.launches,
+                           "mtl_score": score_ops.mtl_score.launches}
+        check(all(v > 0 for v in out["launches"].values()),
+              f"the mesh phase left a kernel unlaunched: {out['launches']}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
     return out
 
 
@@ -2952,9 +3168,14 @@ def main() -> int:
     a = path_a(score_ops, grad_ops)
     b = path_b(grad_ops)
     c = path_c(grad_ops)
-    d = path_d(grad_ops, prox_ops)
+    d, d_data = path_d(grad_ops, prox_ops)
+
+    # -- 9b. the mesh runtime ------------------------------------------------
+    mesh = mesh_phase(grad_ops, prox_ops, score_ops, d_data)
+    del d_data
     grad_launches = (a["launches"]["mtl_grad"] + b["launches"]["mtl_grad"]
-                     + c["launches"]["mtl_grad"] + d["launches"]["mtl_grad"])
+                     + c["launches"]["mtl_grad"] + d["launches"]["mtl_grad"]
+                     + mesh["launches"]["mtl_grad"])
     check(a["launches"]["mtl_grad"] > 0 and b["launches"]["mtl_grad"] > 0,
           "the solver paths never launched mtl_grad")
 
@@ -2975,9 +3196,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src_torch/repro_torch/kernels/mtl_score/csrc/mtl_score.cu",
         "replaces": "src/repro/kernels/mtl_score/kernel.py:57",
-        "launches": main_launches + a["launches"]["mtl_score"],
+        "launches": (main_launches + a["launches"]["mtl_score"]
+                     + mesh["launches"]["mtl_score"]),
         "launches_by_path": {"serve": main_launches,
-                             "solver A": a["launches"]["mtl_score"]},
+                             "solver A": a["launches"]["mtl_score"],
+                             "mesh": mesh["launches"]["mtl_score"]},
         "max_abs_err": max_abs_err,
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],
@@ -2998,7 +3221,8 @@ def main() -> int:
         "launches_by_path": {"solver A": a["launches"]["mtl_grad"],
                              "solver B": b["launches"]["mtl_grad"],
                              "solver C": c["launches"]["mtl_grad"],
-                             "solver D": d["launches"]["mtl_grad"]},
+                             "solver D": d["launches"]["mtl_grad"],
+                             "mesh": mesh["launches"]["mtl_grad"]},
         "max_abs_err": grad_err,
         "ms": grad_row["kernel_ms"],
         "kernel_ms": grad_row["kernel_ms"],
@@ -3016,8 +3240,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src_torch/repro_torch/kernels/mtl_grad/csrc/mtl_grad.cu",
         "replaces": "src/repro/kernels/prox_step/kernel.py:69",
-        "launches": d["launches"]["prox_step"],
-        "launches_by_path": {"solver D": d["launches"]["prox_step"]},
+        "launches": d["launches"]["prox_step"] + mesh["launches"]["prox_step"],
+        "launches_by_path": {"solver D": d["launches"]["prox_step"],
+                             "mesh": mesh["launches"]["prox_step"]},
         "max_abs_err": prox_err,
         "ms": prox_rows[0]["kernel_ms"],
         "kernel_ms": prox_rows[0]["kernel_ms"],
@@ -3113,7 +3338,8 @@ def main() -> int:
                   "max_call_s": worst, "requests_per_s_p50": N_REQUESTS / p50,
                   "profiled_device_busy_share": busy if kernels else None,
                   "profiled_kernel_us": kernels},
-        "solver": {"A": a, "B": b, "C": c, "D": d}, "sampler": sampler,
+        "solver": {"A": a, "B": b, "C": c, "D": d}, "mesh": mesh,
+        "sampler": sampler,
         "lm": lm, "mamba": mamba}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))

@@ -5,6 +5,7 @@ solver paths' shapes, beside the library call that computes the same
 function.
 
     python3 grad_ab.py [--root DIR] [--tag NAME] [--sweep]
+                       [--solve [--save FILE] [--against FILE]]
 
 ``--root`` is the root of the checkout whose ``src_torch/`` is timed
 (default: this script's own), so two versions compare in one machine:
@@ -18,8 +19,14 @@ median of 20 replays), per call (CUDA events around Python calls), and
 the library's device time.  ``--sweep`` times instead the accumulator
 at FULL2D logistic (and FULL's and path D's shapes) under forced plans
 (split, tile rows, stages), each held bitwise to the default plan's
-output where the split is the same.  The last line is one JSON object.
-Without a card it exits 1.
+output where the split is the same.  ``--solve`` times instead whole
+solves on the simulated cluster, as ``chip_smoke.py`` runs them: path
+B's DGSP (FULL logistic, raw gradients through ``mtl_grad``) and path
+D's stochastic ProxGD (FULL2D squared raw, B=500, L=4, through
+``prox_step``), 10 rounds each, ``SOLVE_REPS`` solves after a warm-up,
+each solve's seconds a round and its launches; ``--save`` writes each
+W, ``--against`` prints each W's largest difference from another run's
+saved W.  The last line is one JSON object.  Without a card it exits 1.
 """
 from __future__ import annotations
 
@@ -49,6 +56,9 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--tag", default="")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--solve", action="store_true")
+    ap.add_argument("--save", default="")
+    ap.add_argument("--against", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("grad_ab: torch sees no CUDA device", file=sys.stderr)
@@ -71,6 +81,8 @@ def main() -> int:
     gen.manual_seed(cs.SEED)
     if args.sweep:
         return sweep(gk, gen, card, args.tag)
+    if args.solve:
+        return solve_times(root, card, args)
     D = cs.PROX_DESCENT
     rows = []
     for name, m, n, p, loss in GRAD_SHAPES:
@@ -153,6 +165,66 @@ def sweep(gk, gen, card, tag) -> int:
                   f"{' (default plan)' if pl == default else ''}", flush=True)
         del X, y, W
     print(json.dumps({"tag": tag, "card": card, "sweep": rows}))
+    return 0
+
+
+SOLVE_ROUNDS = 10
+SOLVE_REPS = 7
+
+
+def solve_times(root, card, args) -> int:
+    import statistics
+    import repro_torch
+    from repro_torch.core import prng
+    from repro_torch.core.methods import MTLProblem
+    from repro_torch.data.synthetic import SimSpec, generate
+    from repro_torch.kernels.mtl_grad import ops as gops
+    from repro_torch.kernels.prox_step import ops as pops
+    Xs, ys, _, _ = cs.sim_data(**cs.FULL, seed=cs.SEED, device="cuda",
+                               task="classification")
+    prob_b = MTLProblem.make(Xs, ys, "logistic", A=2.0, r=cs.FULL["r"])
+    sp = cs.FULL2D
+    Xd, yd, _, _ = generate(prng.PRNGKey(sp["key"]),
+                            SimSpec(p=sp["p"], m=sp["m"], r=sp["r"],
+                                    n=sp["n"], task="regression"),
+                            sample_chunks=sp["chunks"])
+    prob_d = MTLProblem.make(Xd, yd, "squared", gram=False, A=2.0, r=sp["r"])
+    cases = (("path B dgsp/logistic", prob_b, gops.task_gradients,
+              dict(method="dgsp")),
+             (f"path D proxgd/squared B={cs.D_BATCH} L=4", prob_d,
+              pops.prox_step, dict(method="proxgd", lam=0.01,
+                                   batch_size=cs.D_BATCH, local_steps=4,
+                                   batch_seed=0)))
+    other = torch.load(args.against) if args.against else {}
+    rows, saved = [], {}
+    for name, prob, kernel, kw in cases:
+        cs.timed_solve(repro_torch.solve, prob, rounds=1, **kw)
+        per_round, launches, W = [], set(), None
+        for _ in range(SOLVE_REPS):
+            n0 = kernel.launches
+            res, secs = cs.timed_solve(repro_torch.solve, prob,
+                                       rounds=SOLVE_ROUNDS, **kw)
+            launches.add(kernel.launches - n0)
+            cs.check(W is None or torch.equal(res.W, W),
+                     f"{name}: a repeated solve gave other bytes")
+            W = res.W
+            per_round.append(secs / SOLVE_ROUNDS)
+        saved[name] = W.cpu()
+        diff = (float((saved[name] - other[name]).abs().max())
+                if name in other else None)
+        rows.append({"solve": name, "round_s": per_round,
+                     "launches": sorted(launches), "max_abs_diff": diff})
+        print(f"[solve] {args.tag} {name}: a round "
+              f"{statistics.median(per_round) * 1e3:.3f} ms "
+              f"({min(per_round) * 1e3:.3f}-{max(per_round) * 1e3:.3f}, "
+              f"{SOLVE_REPS} solves of {SOLVE_ROUNDS} rounds), "
+              f"{sorted(launches)} {kernel.__name__} launches a solve"
+              + ("" if diff is None else f", max|W - W_against| {diff:.3e}"),
+              flush=True)
+    if args.save:
+        torch.save(saved, args.save)
+    print(json.dumps({"root": str(root), "tag": args.tag, "card": card,
+                      "solves": rows}))
     return 0
 
 

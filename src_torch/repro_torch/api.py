@@ -1,7 +1,8 @@
-"""The front door: ``repro_torch.solve(prob, method=..., backend="sim")``.
+"""The front door: ``repro_torch.solve(prob, method=..., backend=...)``.
 
-Port of ``repro.api.solve`` for the simulated cluster.  One call
-signature for every ported solver, returning an
+Port of ``repro.api.solve``.  One call signature for every ported
+solver, on the simulated cluster or the ``torch.distributed`` mesh,
+returning an
 :class:`~repro_torch.core.methods.base.MTLResult`.  The result is also
 the hand-off to the serving half::
 
@@ -31,15 +32,21 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
           ckpt_dir: Optional[str] = None,
           ckpt_keep: Optional[int] = 3,
           metrics: bool = False, device: DeviceLike = None, **hp):
-    """Run one registered solver on the simulated cluster.
+    """Run one registered solver on the simulated cluster
+    (``backend="sim"``) or the mesh (``backend="mesh"``).
 
-    The reference's parameters keep their meaning.  ``batch_size`` /
+    The reference's parameters keep their meaning.  ``backend="mesh"``
+    runs SPMD: every rank of the process group calls ``solve`` with the
+    same problem and arguments and gets the same global result.
+    ``mesh`` is a ``DeviceMesh`` over ``axis`` (and ``data_axis``), or
+    None for one over the whole group (``runtime.mesh.task_mesh`` /
+    ``task_data_mesh``); ``data_shards > 1`` splits each task's rows
+    over that many ranks, or emulated shards under sim.  ``batch_size`` /
     ``local_steps`` / ``batch_seed`` run the stochastic worker path of a
     gradient-served solver (``STOCHASTIC_SOLVERS``) on the reference's
     seeded draws; ``batch_size == n`` with ``local_steps == 1`` is the
     full-batch solve.  What the port cannot run yet raises
     ``NotImplementedError`` naming the ROADMAP item that brings it:
-    ``backend="mesh"`` and ``data_shards > 1`` (Queue 1 item 5),
     ``metrics=True`` (item 8), ``verify=`` (item 9) and
     ``checkpoint_every=`` / ``ckpt_dir=`` (item 6).  ``scan`` is
     accepted and changes nothing: both drivers are one eager loop.
@@ -50,7 +57,10 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
 
     ``result.extras`` carries ``loss`` (so ``res.factorize()`` builds
     the serving artifact with the right math), ``backend``,
-    ``data_shards`` and the two collective-float counters (0 under sim).
+    ``data_shards`` and the two collective-float counters (0 under sim;
+    ``collective_floats_per_chip`` is the ledger's worker->master floats
+    times tasks per rank on the mesh, and the data counter is > 0 on a
+    2-D mesh).
     """
     from .core.methods import get_solver
 

@@ -36,9 +36,18 @@ expression.
 
 Every function takes the worker-local ``data`` dict the runtime binds
 into the round body (``Xs``/``ys`` plus ``gram_A``/``gram_b`` when
-cached) and accepts the runtime as ``rt=``.  Only one data shard exists
-in the port so far, so every data-axis reduction of the reference
-(``_pmean``) is the identity and ``rt`` is not read.
+cached) and accepts the runtime as ``rt=``.
+
+Data-axis sharding.  Under a 2-D ``("tasks", "data")`` runtime the
+``Xs``/``ys`` leaves hold only ``n / data_shards`` rows per task.  With
+``rt=`` such a runtime, every raw-path sample statistic is reduced over
+the data axis (``rt.pmean_data``: a data-group all-reduce on the mesh,
+the emulation's shards meeting under sim): gradients and Hessians are
+averaged across shards before any solve, iterative refits reduce once
+per Newton step, and the kernels' per-shard outputs are reduced like the
+plain path's.  The Gram path needs no reduction: the 2-D runtimes build
+the cache as a sum of per-shard partial Grams before the round loop.
+``rt=None`` or one data shard keeps the single-shard arithmetic.
 """
 from __future__ import annotations
 
@@ -61,19 +70,61 @@ def gram_stats(Xs: torch.Tensor, ys: torch.Tensor, data_shards: int = 1
 
     Xs: (m, n, p); ys: (m, n)  ->  A (m, p, p), b (m, p) with
     A_j = X_j^T X_j / n and b_j = X_j^T y_j / n, on the designs' device.
+
+    ``data_shards > 1`` computes the same statistics as a sum of
+    per-shard partial Grams over contiguous row blocks of n, summed in
+    shard order: what the 2-D runtimes build, which agrees with the
+    monolithic order only to float rounding.
     """
-    if data_shards != 1:
-        raise NotImplementedError(
-            "data_shards > 1 comes with the mesh runtime (ROADMAP Queue 1 "
-            "item 5)")
     n = Xs.shape[1]
-    A = torch.einsum("jni,jnk->jik", Xs, Xs) / n
-    b = torch.einsum("jni,jn->ji", Xs, ys) / n
+    if n % data_shards:
+        raise ValueError(f"n={n} not divisible by data_shards={data_shards}")
+    rows = n // data_shards
+    A, b = shard_gram_stats(Xs[:, :rows], ys[:, :rows], n)
+    for s in range(1, data_shards):
+        A_s, b_s = shard_gram_stats(Xs[:, s * rows:(s + 1) * rows],
+                                    ys[:, s * rows:(s + 1) * rows], n)
+        A, b = A + A_s, b + b_s
     return A, b
+
+
+def shard_gram_stats(Xs: torch.Tensor, ys: torch.Tensor, n: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's partial Gram statistics, normalised by the GLOBAL
+    row count ``n`` so that the shards' sum is the task's Gram."""
+    return (torch.einsum("jni,jnk->jik", Xs, Xs) / n,
+            torch.einsum("jni,jn->ji", Xs, ys) / n)
 
 
 def has_gram(data: Dict[str, torch.Tensor]) -> bool:
     return "gram_A" in data
+
+
+def _sharded(rt) -> bool:
+    return rt is not None and rt.data_shards > 1
+
+
+def _pmean(rt, x, note, repeats: int = 1):
+    """Average ``x`` over the data axis; identity off the 2-D runtimes."""
+    return rt.pmean_data(x, note, repeats=repeats) if _sharded(rt) else x
+
+
+def _moments(rt, Xs, ys, note) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-task second moments of (possibly data-sharded) rows:
+    A (L, d, d) = X^T X / n, b (L, d) = X^T y / n — each shard's
+    statistics over its local rows, pmean-reduced over the data axis.
+    The one reduction every closed-form sharded solve goes through."""
+    A, b = shard_gram_stats(Xs, ys, Xs.shape[1])
+    return _pmean(rt, A, note + " gram shards"), \
+        _pmean(rt, b, note + " Xty shards")
+
+
+def _solve_cols(H: torch.Tensor, g: torch.Tensor, shift) -> torch.Tensor:
+    """Per-task ``(H_j + shift I)^-1 g_j``: H (L, d, d), g (d, L) ->
+    (d, L)."""
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    return _per_task(lambda Hj, gj: torch.linalg.solve(Hj + shift * eye, gj),
+                     (0, 1))(H, g)
 
 
 def _per_task(fn, in_dims, out_dims=1):
@@ -119,9 +170,11 @@ def grad_columns(loss: Loss, W_cols: torch.Tensor,
     elif impl == "kernel":
         G = task_gradients(data["Xs"], data["ys"], W_cols.T.contiguous(),
                            loss=loss.name).T.to(W_cols.dtype)
+        G = _pmean(rt, G, "gradient shards")
     elif impl == "torch":
         G = _per_task(lambda w, X, y: lm.task_grad(loss, w, X, y),
                       (1, 0, 0))(W_cols, data["Xs"], data["ys"])
+        G = _pmean(rt, G, "gradient shards")
     else:
         raise ValueError(f"unknown gradient impl {impl!r}; have {IMPLS}")
     if l2:
@@ -162,11 +215,16 @@ def batch_indices(seed: int, task_ids: torch.Tensor, round_k: int,
 def _sample_batch(data: Dict[str, torch.Tensor], rt, seed: int,
                   round_k: int, local_step: int, batch_size: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gather one seeded mini-batch ``(Xb (L, B, p), yb (L, B))`` from the
-    worker-local rows (one data shard: the shard index is 0)."""
+    """Gather one seeded mini-batch ``(Xb (L, B_loc, p), yb (L, B_loc))``
+    from the worker-local rows.  ``batch_size`` is the GLOBAL per-task
+    batch; each data shard draws ``batch_size / data_shards`` of its
+    local rows under its own folded shard index."""
     Xs, ys = data["Xs"], data["ys"]
+    D = rt.data_shards if rt is not None else 1
     idx = batch_indices(seed, data["task_ids"], round_k, local_step,
-                        batch_size, Xs.shape[1]).long()
+                        batch_size // D, Xs.shape[1],
+                        shard=rt.data_index() if rt is not None else 0
+                        ).long()
     rows = torch.arange(Xs.shape[0], device=Xs.device)[:, None]
     return Xs[rows, idx], ys[rows, idx]
 
@@ -182,6 +240,7 @@ def minibatch_grad_columns(loss: Loss, W_cols: torch.Tensor,
     Xb, yb = _sample_batch(data, rt, seed, round_k, local_step, batch_size)
     G = _per_task(lambda w, X, y: lm.task_grad(loss, w, X, y),
                   (1, 0, 0))(W_cols, Xb, yb)
+    G = _pmean(rt, G, "minibatch gradient shards")
     if l2:
         G = G + l2 * W_cols
     return G
@@ -223,6 +282,10 @@ def minibatch_prox_step_columns(loss: Loss, W_cols: torch.Tensor,
                    (L, p) gradient never reaching device memory.  It
                    gets ``Z=W``, ``Q=0`` and ``inv_m=1/m`` in the
                    plain-descent case, as the reference's Pallas branch.
+
+    Under 2-D sharding the kernel path pmean-reduces the STEPPED columns
+    instead of the gradient: the update is affine in G with W/Z/Q the
+    same on every shard, so the average commutes (the reference's rule).
     """
     impl = _resolve_step_impl(loss, data, impl)
     if impl == "torch":
@@ -241,7 +304,7 @@ def minibatch_prox_step_columns(loss: Loss, W_cols: torch.Tensor,
     Q = torch.zeros_like(W) if Q_cols is None else Q_cols.T.contiguous()
     W_new = prox_step(Xb, yb, W, Z, Q, eta=eta, rho=rho,
                       inv_m=1.0 / m, l2=l2, loss=loss.name)
-    return W_new.T.to(W_cols.dtype)
+    return _pmean(rt, W_new.T.to(W_cols.dtype), "minibatch gradient shards")
 
 
 def minibatch_newton_columns(loss: Loss, W_cols: torch.Tensor,
@@ -250,14 +313,13 @@ def minibatch_newton_columns(loss: Loss, W_cols: torch.Tensor,
                              round_k: int, local_step: int, batch_size: int
                              ) -> torch.Tensor:
     """DNSP's stochastic worker messages: the Newton direction of the
-    MINI-BATCH objective, gradient and Hessian on the same seeded batch."""
+    MINI-BATCH objective, gradient and Hessian on the same seeded batch
+    (each pmean-reduced over the data axis before the solve)."""
     Xb, yb = _sample_batch(data, rt, seed, round_k, local_step, batch_size)
-    eye = torch.eye(W_cols.shape[0], dtype=W_cols.dtype,
-                    device=W_cols.device)
     g, H = _grad_hess(loss, W_cols, Xb, yb, l2)
-    return _per_task(lambda Hj, gj: torch.linalg.solve(Hj + damping * eye,
-                                                       gj),
-                     (0, 1))(H, g)
+    g = _pmean(rt, g, "minibatch newton grad shards")
+    H = _pmean(rt, H, "minibatch newton hess shards")
+    return _solve_cols(H, g, damping)
 
 
 def newton_columns(loss: Loss, W_cols: torch.Tensor,
@@ -266,7 +328,9 @@ def newton_columns(loss: Loss, W_cols: torch.Tensor,
     """DNSP worker messages ``(hess L_nj)^-1 grad L_nj``: (p, L).
 
     Squared loss with Gram cache: the Hessian IS ``A_j`` — one (p, p)
-    solve per task, no pass over the raw data.
+    solve per task, no pass over the raw data.  Raw path under a 2-D
+    runtime: per-shard gradients and Hessians are pmean-reduced BEFORE
+    the solve (the direction is nonlinear in the data).
     """
     if loss.name == "squared" and has_gram(data):
         p = W_cols.shape[0]
@@ -278,6 +342,11 @@ def newton_columns(loss: Loss, W_cols: torch.Tensor,
 
         return _per_task(one, (0, 0, 1))(data["gram_A"], data["gram_b"],
                                          W_cols)
+    if _sharded(rt):
+        g, H = _grad_hess(loss, W_cols, data["Xs"], data["ys"], l2)
+        g = rt.pmean_data(g, "newton grad shards")
+        H = rt.pmean_data(H, "newton hess shards")
+        return _solve_cols(H, g, damping)
     return _per_task(
         lambda w, X, y: lm.newton_direction(loss, w, X, y, l2, damping),
         (1, 0, 0))(W_cols, data["Xs"], data["ys"])
@@ -291,16 +360,42 @@ def ridge_columns(data: Dict[str, torch.Tensor], l2: float) -> torch.Tensor:
                      (0, 0))(A, b)
 
 
+def _newton_cols(loss: Loss, Xs: torch.Tensor, ys: torch.Tensor, l2: float,
+                 iters: int, rt, damping: float = 1e-8) -> torch.Tensor:
+    """Stacked damped-Newton ERM over data-sharded rows.
+
+    Xs: (L, n_loc, d); ys: (L, n_loc) -> V (d, L), from V = 0.  The
+    data-axis reduction happens once per Newton step (gradient and
+    Hessian), each call charged once as it runs.
+    """
+    L, _, d = Xs.shape
+    V = torch.zeros((d, L), dtype=Xs.dtype, device=Xs.device)
+    for _ in range(iters):
+        g, H = _grad_hess(loss, V, Xs, ys, l2)
+        g = _pmean(rt, g, "erm newton grad")
+        H = _pmean(rt, H, "erm newton hess")
+        V = V - _solve_cols(H, g, damping)
+    return V
+
+
 def erm_columns(loss: Loss, data: Dict[str, torch.Tensor], l2: float,
                 rt=None, iters: int = 25) -> torch.Tensor:
     """Per-task unconstrained ERM solutions (p, L) — the Local baseline's
     worker computation: one ridge solve per task from the Gram cache
     when present, else ``linear_model.erm`` per task (closed form for
-    the squared loss, damped Newton otherwise)."""
+    the squared loss, damped Newton otherwise).  Under a 2-D runtime
+    the raw paths reduce their moments (squared) or each Newton step
+    over the data axis."""
     if loss.name == "squared" and has_gram(data):
         return ridge_columns(data, l2)
-    return _per_task(lambda X, y: lm.erm(loss, X, y, l2, iters),
-                     (0, 0))(data["Xs"], data["ys"])
+    Xs, ys = data["Xs"], data["ys"]
+    if not _sharded(rt):
+        return _per_task(lambda X, y: lm.erm(loss, X, y, l2, iters),
+                         (0, 0))(Xs, ys)
+    if loss.name == "squared":
+        A, b = _moments(rt, Xs, ys, "erm")
+        return _solve_cols(A, b.T, l2)
+    return _newton_cols(loss, Xs, ys, l2, iters, rt)
 
 
 def prox_columns(loss: Loss, data: Dict[str, torch.Tensor],
@@ -322,7 +417,7 @@ def prox_columns(loss: Loss, data: Dict[str, torch.Tensor],
         if has_gram(data):
             A, b = data["gram_A"], data["gram_b"]
         else:
-            A, b = gram_stats(data["Xs"], data["ys"])
+            A, b = _moments(rt, data["Xs"], data["ys"], "prox")
 
         def one(Aj, bj, z, q):
             Amat = Aj / m + (rho + l2 / m) * eye
@@ -334,6 +429,8 @@ def prox_columns(loss: Loss, data: Dict[str, torch.Tensor],
     W = W0_cols
     for _ in range(iters):
         g, H = _grad_hess(loss, W, Xs, ys, l2)
+        g = _pmean(rt, g, "prox newton grad")
+        H = _pmean(rt, H, "prox newton hess")
         g = g / m + Q_cols + rho * (W - Z_cols)
         step = _per_task(lambda Hj, gj: torch.linalg.solve(Hj / m + rho * eye,
                                                            gj),
@@ -361,6 +458,17 @@ def projected_solves(loss: Loss, U: torch.Tensor,
             return torch.linalg.solve(Ak, U.T @ b)
 
         V = _per_task(one, (0, 0))(data["gram_A"], data["gram_b"])
+        return U @ V, V
+
+    if _sharded(rt):
+        # project the LOCAL rows (X_j U on the shard) and reduce the
+        # k-dimensional normal equations, or each Newton step
+        XU = torch.matmul(data["Xs"], U)                 # (L, n_loc, k)
+        if loss.name == "squared":
+            Ak, bk = _moments(rt, XU, data["ys"], "projected")
+            V = _solve_cols(Ak, bk.T, max(l2, 1e-9))
+        else:
+            V = _newton_cols(loss, XU, data["ys"], max(l2, 1e-9), iters, rt)
         return U @ V, V
 
     return _per_task(lambda X, y: lm.projected_erm(loss, U, X, y, l2, iters),

@@ -12,10 +12,25 @@ is an instance of one round structure:
 
 A :class:`ProtocolRuntime` provides exactly those primitives plus a
 driver (:meth:`run_rounds` / :meth:`one_shot`) that executes the round
-body and keeps the communication ledger.  The port has one backend so
-far, ``SimRuntime`` (the simulated cluster: all m tasks in one worker
-view, collectives are identities); the mesh backend and the 2-D
-``("tasks", "data")`` layout come with ROADMAP Queue 1 item 5.
+body and keeps the communication ledger.  Two backends implement them:
+
+* ``SimRuntime``  — the simulated cluster: one worker view holds all m
+  tasks and the collectives are identities that only charge.
+* ``MeshRuntime`` — one process per device of a
+  ``torch.distributed`` device mesh: each rank holds its ``m/T`` tasks,
+  runs the same body on them, and the collectives are real
+  (all-gather / all-reduce over the "tasks" group; the replicated
+  master runs on every rank).
+
+The data axis.  ``data_shards > 1`` turns the runtime into a 2-D
+``("tasks", "data")`` layout: each task's ``n`` rows are split into
+``data_shards`` contiguous blocks, and per-task sample statistics are
+reduced over the data axis with :meth:`pmean_data` / :meth:`psum_data`
+(all-reduces over the "data" group on the mesh; identities when
+``data_shards == 1``).  ``SimRuntime`` emulates that axis on one
+device.  The ledger charges only tasks-axis traffic, so it is the same
+for every layout; data-axis floats are measured into
+``data_collective_floats_per_chip``.
 
 Accounting keeps the reference's model.  The primitives record their
 charges while the FIRST round runs; that template is replayed into the
@@ -38,13 +53,18 @@ from ..core.comm import CommLog
 # A round body: (k, state, data) -> state.  ``k`` is the round index (a
 # Python int), ``state`` a dict of tensors or small dicts of them (e.g. a
 # spectral-engine carry), ``data`` the worker-local data view — a dict
-# with ``Xs`` (m,n,p) / ``ys`` (m,n) plus any cached per-task statistics
-# (``gram_A``/``gram_b``), every leaf stacked over the task axis.
+# with ``Xs`` (L,n,p) / ``ys`` (L,n) plus any cached per-task statistics
+# (``gram_A``/``gram_b``), every leaf stacked over the worker view's L
+# tasks (all m under sim, the rank's block under the mesh).  With
+# ``data_shards > 1`` the leaves in ``SAMPLE_AXIS_LEAVES`` hold only the
+# shard's ``n / data_shards`` rows.
 RoundBody = Callable[[int, Dict[str, object], Dict[str, torch.Tensor]],
                      Dict[str, object]]
 
-MESH_TODO = ("the mesh backend and data_shards > 1 come with the mesh "
-             "runtime, ROADMAP Queue 1 item 5")
+# Worker-data leaves whose axis 1 is the per-task sample axis: the
+# leaves a 2-D layout splits over the data axis.  The Gram cache has no
+# sample axis and is the same on every data shard.
+SAMPLE_AXIS_LEAVES = frozenset({"Xs", "ys"})
 
 
 @dataclasses.dataclass
@@ -73,7 +93,21 @@ class _WireEvent:
     dim: int            # ledger: dimension of each vector
     note: str
     wire_floats: int    # protocol floats this device's machines feed a
-                        # collective: 0 under SimRuntime, where none runs
+                        # collective: L x the per-machine payload under
+                        # the mesh, 0 under SimRuntime, where none runs
+    kind: str = "none"  # the collective the call runs ("all_gather",
+                        # "psum", or "none" where none runs)
+    payload: int = 0    # floats in that collective's operand on this
+                        # device (psum: after the local pre-reduction)
+
+
+@dataclasses.dataclass
+class _DataEvent:
+    """One data-axis collective recorded while a round body runs."""
+    kind: str           # "psum" | "all_gather"
+    floats: int         # operand floats per device per call
+    repeats: int = 1    # executions per round the one call stands for
+    note: str = ""
 
 
 class ProtocolRuntime:
@@ -84,16 +118,40 @@ class ProtocolRuntime:
     def __init__(self, prob):
         self.prob = prob
         self.comm = CommLog(m=prob.m)
-        # worker->master floats fed into collectives (0 under sim)
+        # worker->master protocol floats this device's machines fed into
+        # collectives: the ledger's per-machine uplink times tasks per
+        # device under the mesh, 0 under sim where no collective runs
         self.collective_floats_per_chip = 0
-        # data-axis collective floats (0 while only one data shard exists)
+        # data-axis collective floats this device fed (psum / pmean /
+        # all_gather over "data"): never charged to the CommLog, 0 under
+        # sim and whenever data_shards == 1
         self.data_collective_floats_per_chip = 0
+        # the part of it spent outside the rounds (the 2-D Gram cache)
+        self.setup_data_floats = 0
         self.data_shards = 1
+        self.data_axis = "data"
         self._recording = False
         self._template: List[_WireEvent] = []
         self._round_events: List[_WireEvent] = []
+        self._data_template: List[_DataEvent] = []
+        self._round_data_events: List[_DataEvent] = []
         self._data_leaves: Optional[Tuple[str, ...]] = None
         self._used = False
+
+    # ------------------------------------------------------------------
+    # topology
+    # ------------------------------------------------------------------
+    @property
+    def local_tasks(self) -> int:
+        """Tasks held by one worker view (m under sim, m/T on the mesh)."""
+        raise NotImplementedError
+
+    def data_index(self) -> int:
+        """Index of this shard along the data axis (0 when
+        ``data_shards == 1``).  The stochastic batch sampler folds it
+        into its key chain, so each shard of a 2-D layout draws the
+        reference's rows for that shard (``worker_ops.batch_indices``)."""
+        return 0
 
     # ------------------------------------------------------------------
     # protocol primitives — call these inside a round body only
@@ -151,19 +209,55 @@ class ProtocolRuntime:
         return x
 
     # ------------------------------------------------------------------
-    # data-axis primitives: identities while only one data shard exists
+    # data-axis primitives: within-task sharding
     # ------------------------------------------------------------------
     def psum_data(self, x: torch.Tensor, note: str = "",
                   repeats: int = 1) -> torch.Tensor:
-        return x
+        """Sum a per-shard partial statistic over the data axis (one
+        normalised by the GLOBAL n, e.g. partial Grams ``X_s^T X_s / n``).
+        Identity when ``data_shards == 1``.  Never charged to the
+        CommLog; on the mesh the ``x.numel() * repeats`` floats are
+        measured into ``data_collective_floats_per_chip``."""
+        if self.data_shards == 1:
+            return x
+        if self._count_data_wire:
+            self._charge_data("psum", x.numel(), repeats, note)
+        return self._psum_data(x)
 
     def pmean_data(self, x: torch.Tensor, note: str = "",
                    repeats: int = 1) -> torch.Tensor:
-        return x
+        """Average a per-shard statistic normalised by the LOCAL row
+        count (e.g. ``(1/n_local) X_s^T l'``) over the data axis: the
+        shards' sum divided by ``data_shards``.  Identity when
+        ``data_shards == 1``; accounting as :meth:`psum_data`."""
+        if self.data_shards == 1:
+            return x
+        if self._count_data_wire:
+            self._charge_data("psum", x.numel(), repeats, note)
+        return self._psum_data(x) / self.data_shards
 
     def gather_samples(self, x: torch.Tensor, axis: int = 1,
                        note: str = "") -> torch.Tensor:
-        return x
+        """Reassemble the full sample axis of a per-task stack from its
+        data shards, in row order, on every shard (the Centralize
+        baseline calls it before its tasks-axis shipment, so the charged
+        event keeps its 1-D shape).  Identity when ``data_shards == 1``;
+        measured, never charged."""
+        if self.data_shards == 1:
+            return x
+        if self._count_data_wire:
+            self._charge_data("all_gather", x.numel(), 1, note)
+        return self._gather_samples(x, axis)
+
+    # Whether this backend moves bytes over the data axis (the mesh: yes;
+    # the sim emulation: no, as it measures 0 on the tasks axis too).
+    _count_data_wire = False
+
+    def _psum_data(self, x):
+        raise NotImplementedError
+
+    def _gather_samples(self, x, axis):
+        raise NotImplementedError
 
     # ------------------------------------------------------------------
     # ledger plumbing
@@ -179,11 +273,30 @@ class ProtocolRuntime:
             vectors *= int(s)
         return vectors, int(payload[-1])
 
+    def _records_here(self) -> bool:
+        """Whether the calling worker view records charges (all but the
+        sim emulation's shards other than 0, which repeat shard 0's)."""
+        return True
+
     def _charge(self, direction: str, vectors: int, dim: int, note: str,
-                wire: int) -> None:
-        if self._recording:
+                wire: int, kind: str = "none", payload: int = 0) -> None:
+        if self._recording and self._records_here():
             self._round_events.append(
-                _WireEvent(direction, int(vectors), int(dim), note, int(wire)))
+                _WireEvent(direction, int(vectors), int(dim), note,
+                           int(wire), kind, int(payload)))
+
+    def _charge_data(self, kind: str, floats: int, repeats: int = 1,
+                     note: str = "") -> None:
+        """Measure a data-axis collective (never enters the CommLog).
+        Inside a round it joins the round's data template; outside one
+        (the 2-D Gram cache) it counts at once, as setup."""
+        if self._recording:
+            if self._records_here():
+                self._round_data_events.append(
+                    _DataEvent(kind, int(floats), int(repeats), note))
+        else:
+            self.data_collective_floats_per_chip += int(floats) * int(repeats)
+            self.setup_data_floats += int(floats) * int(repeats)
 
     def _replay_round(self, count_round: bool) -> None:
         if count_round:
@@ -191,18 +304,41 @@ class ProtocolRuntime:
         for ev in self._template:
             self.comm.send(ev.direction, ev.vectors, ev.dim, ev.note)
             self.collective_floats_per_chip += ev.wire_floats
+        self.data_collective_floats_per_chip += sum(
+            ev.floats * ev.repeats for ev in self._data_template)
 
     # ------------------------------------------------------------------
     # drivers
     # ------------------------------------------------------------------
-    def _round_data(self) -> Dict[str, torch.Tensor]:
-        """The worker-data leaves bound into the round loop: the full
-        dict, pruned to the solver-declared ``data_leaves`` when given."""
-        data = self.prob.worker_data()
+    def _worker_data(self) -> Dict[str, torch.Tensor]:
+        """This backend's worker-data view (the whole problem under sim
+        with one data shard)."""
+        return self.prob.worker_data()
+
+    def _round_data(self):
+        """The worker-data leaves bound into the round loop: the
+        backend's view, pruned to the solver-declared ``data_leaves``
+        when given (after the view is built: the 2-D Gram cache still
+        reads the raw rows)."""
+        data = self._worker_data()
         if self._data_leaves is None:
             return data
         keep = set(self._data_leaves)
         return {k: v for k, v in data.items() if k in keep}
+
+    def _local_state(self, state, sharded: Tuple[str, ...]):
+        """The round loop's state from the caller's global state (the
+        mesh keeps only its task columns of the ``sharded`` entries)."""
+        return state
+
+    def _global_entry(self, value, shard_it: bool):
+        """One state entry as the caller sees it (the mesh gathers the
+        task columns of a sharded entry back, uncharged)."""
+        return value
+
+    def _call_body(self, body: RoundBody, k: int, state, data):
+        """Run one round of ``body`` on this backend's worker views."""
+        return body(k, state, data)
 
     @staticmethod
     def _as_records(record) -> Tuple[RecordSpec, ...]:
@@ -226,19 +362,23 @@ class ProtocolRuntime:
         """Run one round and return its state; the first round's charges
         become the template, every later round must repeat them."""
         self._round_events = []
+        self._round_data_events = []
         self._recording = True
         try:
-            state = body(k, state, data)
+            state = self._call_body(body, k, state, data)
         finally:
             self._recording = False
         if k == 0:
             self._template = self._round_events
-        elif self._round_events != self._template:
+            self._data_template = self._round_data_events
+        elif (self._round_events != self._template
+              or self._round_data_events != self._data_template):
             raise RuntimeError(
-                f"round {k} charged {self._round_events} but round 0 "
-                f"charged {self._template}: every round of a protocol must "
-                f"run the same collectives, or the replayed ledger would "
-                f"be wrong")
+                f"round {k} charged {self._round_events} and "
+                f"{self._round_data_events} but round 0 charged "
+                f"{self._template} and {self._data_template}: every round "
+                f"of a protocol must run the same collectives, or the "
+                f"replayed ledger would be wrong")
         return state
 
     def run_rounds(self, rounds: int, body: RoundBody,
@@ -251,29 +391,36 @@ class ProtocolRuntime:
         """Execute ``rounds`` protocol rounds of ``body``.
 
         ``state`` is a dict of global tensors (or small dicts of them);
-        ``sharded`` names the entries that live on the workers (their
-        task columns; the same thing as master state under sim).
-        ``data_leaves`` names the worker-data leaves the body reads
-        (None = all).  Each round runs ``body`` once; the charges of
-        round 0 are the per-round template, replayed into ``self.comm``
-        after every round (see the module docstring).  ``record``
-        snapshots state entries on their cadences.  ``scan`` is accepted
-        for parity with the reference and changes nothing.
+        ``sharded`` names the entries that live on the workers, split
+        along their last axis (task columns) on the mesh; the rest is
+        replicated master state.  Returned and recorded state is always
+        global, on every rank.  ``data_leaves`` names the worker-data
+        leaves the body reads (None = all).  Each round runs ``body``
+        once; the charges of round 0 are the per-round template,
+        replayed into ``self.comm`` after every round (see the module
+        docstring).  ``record`` snapshots state entries on their
+        cadences.  ``scan`` is accepted for parity with the reference
+        and changes nothing.
         """
         self._claim()
         self._template = []
+        self._data_template = []
         self._data_leaves = None if data_leaves is None else \
             tuple(data_leaves)
+        sharded = tuple(sharded)
         records = self._as_records(record)
         data = self._round_data()
+        state = self._local_state(state, sharded)
         snap_sets = [set(r.snap_rounds(rounds)) for r in records]
         for t in range(rounds):
             state = self._run_body(body, t, state, data)
             self._replay_round(count_rounds)
             for r, sset in zip(records, snap_sets):
                 if t in sset:
-                    r.sink.record(t + 1, state[r.key])
-        return state
+                    r.sink.record(t + 1, self._global_entry(
+                        state[r.key], r.key in sharded))
+        return {k: self._global_entry(v, k in sharded)
+                for k, v in state.items()}
 
     def one_shot(self, body: RoundBody, state: Dict[str, object],
                  sharded: Sequence[str] = (), count_round: bool = True,
@@ -291,12 +438,18 @@ def make_runtime(backend: str, prob, *, mesh=None, axis: str = "tasks",
                  ) -> ProtocolRuntime:
     """Construct a fresh runtime for one solve.
 
-    ``backend``: "sim".  "mesh" or ``data_shards > 1`` raise
-    ``NotImplementedError`` until the mesh runtime is ported.
+    ``backend``: "sim" | "mesh".  ``data_shards > 1`` shards each task's
+    rows over that many ranks (mesh) or emulated shards (sim) along a
+    second ``data_axis``.  ``mesh`` may be a prebuilt 1-D or 2-D
+    ``DeviceMesh``; when omitted one is built over the whole process
+    group (``runtime.mesh.task_mesh`` / ``task_data_mesh``) on the
+    problem's device type.
     """
-    if backend not in ("sim", "mesh"):
-        raise ValueError(f"unknown backend {backend!r}; have 'sim', 'mesh'")
-    if backend == "mesh" or data_shards != 1:
-        raise NotImplementedError(MESH_TODO)
-    from .sim import SimRuntime
-    return SimRuntime(prob)
+    if backend == "sim":
+        from .sim import SimRuntime
+        return SimRuntime(prob, data_shards=data_shards)
+    if backend == "mesh":
+        from .mesh import MeshRuntime
+        return MeshRuntime(prob, mesh=mesh, axis=axis, data_axis=data_axis,
+                           data_shards=data_shards)
+    raise ValueError(f"unknown backend {backend!r}; have 'sim', 'mesh'")

@@ -17,7 +17,8 @@ frozen subspace.
   the hand-written CUDA kernel (:mod:`repro_torch.kernels.mtl_score`)
   when the model lies on the card, by its plain version on the CPU.
   Every ``code_dtype`` (f32 with scale 1.0, int8, fp8) goes through the
-  same kernel.  Versions hot-swap atomically.
+  same kernel.  Versions hot-swap atomically.  ``mesh=`` shards the code
+  table over a ``torch.distributed`` mesh axis.
 * few-shot onboarding through
   :func:`repro_torch.core.linear_model.projected_erm`.
 """
@@ -273,6 +274,8 @@ class _ServeState:
                                        # maybe_reload checks so a slow
                                        # store load never overwrites a
                                        # concurrently installed model
+    row0: int = 0                      # under a mesh: the first global
+                                       # task id of this rank's C rows
 
 
 class MTLServer:
@@ -291,8 +294,17 @@ class MTLServer:
 
     ``code_dtype="int8"|"fp8"`` stores the code table quantized with
     per-code scales; f32 serves with scales of exactly 1.0.  Onboarding
-    requantizes on install.  ``mesh=`` (a code table sharded over
-    several cards) is not ported yet and raises.
+    requantizes on install.
+
+    ``mesh=`` (a ``DeviceMesh`` with a "tasks" axis, e.g.
+    ``runtime.task_mesh``) shards the code table over that axis: the
+    table is padded to a multiple of the axis with zero rows (an int8
+    or fp8 table's scales with 1.0), and each rank holds its block of
+    rows.  Every rank calls ``score`` with the whole batch; each scores
+    it with its own block through the same kernel, zeroes the scores of
+    ids outside the block, and one all-reduce of the ``(B,)`` scores per
+    wave gives every rank the full result.  The validity flag is still
+    taken against the global ``m``.
 
     SLO telemetry: every scoring call reports into ``registry`` —
     ``serve_latency_seconds`` (measured on the host around the launches
@@ -306,11 +318,19 @@ class MTLServer:
     def __init__(self, model: FactoredModel, *, batch_size: int = 64,
                  mesh=None, code_dtype: str = "f32", registry=None,
                  swap_log_limit: int = 256):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "a sharded code table (mesh=) is not ported yet; it comes "
-                "with the mesh runtime slice (ROADMAP.md, Queue 1, "
-                "'Mesh runtime')")
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(
+                    f"mesh= takes a torch.distributed DeviceMesh with a "
+                    f"'tasks' axis (repro_torch.runtime.task_mesh), got "
+                    f"{type(mesh).__name__}")
+            if mesh.device_type != model.device.type:
+                raise ValueError(f"the mesh lies on {mesh.device_type!r} "
+                                 f"devices and the model on {model.device}")
+            from ..runtime.mesh import mesh_axis
+            self._shards, self._shard, self._group = mesh_axis(mesh, "tasks")
         if code_dtype not in CODE_DTYPES:
             raise ValueError(f"code_dtype must be one of {CODE_DTYPES}, "
                              f"got {code_dtype!r}")
@@ -341,12 +361,22 @@ class MTLServer:
         # codes — onboarding reinstalls through here, so an appended row
         # is requantized with the same per-code scheme as the table
         C, S = quantize_codes(model.codes, self.code_dtype)
+        row0 = 0
+        if self.mesh is not None:
+            pad = (-C.shape[0]) % self._shards
+            if pad:                    # zero rows no valid id reaches
+                C = torch.cat([C, C.new_zeros((pad, C.shape[1]))])
+                S = torch.cat([S, S.new_ones((pad, 1))])  # pad rows exact
+            rows = C.shape[0] // self._shards
+            row0 = self._shard * rows
+            C = C[row0:row0 + rows].contiguous()
+            S = S[row0:row0 + rows].contiguous()
         keys = model.task_keys
         return _ServeState(model=model,
                            U=model.U.to(torch.float32).contiguous(),
                            C=C, S=S, version=model.version, step=step,
                            key_index=None if keys is None else
-                           {k: i for i, k in enumerate(keys)})
+                           {k: i for i, k in enumerate(keys)}, row0=row0)
 
     def _log_swap(self, version: str) -> None:
         """Append an install record, evicting the oldest past the ring
@@ -505,8 +535,11 @@ class MTLServer:
             if fill:                           # pad the last wave
                 wid = torch.cat([wid, wid.new_zeros(fill)])
                 wX = torch.cat([wX, wX.new_zeros((fill, wX.shape[1]))])
-            preds, ok = _score_batch_quant(st.U, st.C, st.S, wid, wX,
-                                           st.model.m)
+            if self.mesh is None:
+                preds, ok = _score_batch_quant(st.U, st.C, st.S, wid, wX,
+                                               st.model.m)
+            else:
+                preds, ok = self._score_sharded(st, wid, wX)
             outs.append(preds[:B - fill] if fill else preds)
             oks.append(ok)
         # ONE host round-trip validates every wave of the call
@@ -519,6 +552,22 @@ class MTLServer:
         self._req.inc(n)
         self._wav.inc(len(outs))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def _score_sharded(self, st: _ServeState, ids: torch.Tensor,
+                       X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One wave against this rank's block of code rows: the kernel
+        scores the block's local ids (clamped into the block), a mask
+        zeroes the ids other ranks hold, and a sum over the axis gives
+        every rank each request's one nonzero term."""
+        import torch.distributed as dist
+        rows = st.C.shape[0]
+        local = ids - st.row0
+        mine = (local >= 0) & (local < rows)
+        preds = mtl_score(st.U, st.C, st.S, torch.clamp(local, 0, rows - 1),
+                          X)
+        preds = torch.where(mine, preds, torch.zeros_like(preds))
+        dist.all_reduce(preds, group=self._group)
+        return preds, torch.all((ids >= 0) & (ids < st.model.m))
 
     def score(self, task_ids, X) -> Tuple[torch.Tensor, str]:
         """Score a mixed-task request batch: (N,) margins + the version

@@ -86,6 +86,44 @@ def test_the_stochastic_path_leaves_jax_unloaded():
     assert proc.stdout.strip() == "clean"
 
 
+def test_the_mesh_path_leaves_jax_unloaded(tmp_path):
+    """The mesh slice's modules import, and a mesh solve, a sharded-table
+    wave and the sim's 2-D emulation run in a gloo group of one process,
+    without JAX or the reference."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
+        "import numpy as np, torch\n"
+        "import repro_torch.runtime.mesh, repro_torch.runtime.recovery\n"
+        "import repro_torch.core.distributed\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch import solve\n"
+        "from repro_torch.core.distributed import dgsp_distributed\n"
+        "from repro_torch.core.methods import MTLProblem\n"
+        "from repro_torch.runtime import init_cluster, task_mesh\n"
+        "from repro_torch.serve.mtl import FactoredModel, MTLServer\n"
+        "rng = np.random.default_rng(0)\n"
+        "X = rng.standard_normal((4, 16, 8)).astype(np.float32)\n"
+        "y = rng.standard_normal((4, 16)).astype(np.float32)\n"
+        "prob = MTLProblem.make(X, y, gram=False, device='cpu')\n"
+        f"init_cluster('file://{tmp_path / 'store'}', 1, 0, device='cpu')\n"
+        "mesh = task_mesh(device='cpu')\n"
+        "res = dgsp_distributed(prob, rounds=2, mesh=mesh)\n"
+        "assert res.collective_floats_per_chip > 0\n"
+        "solve(prob, method='proxgd', rounds=2, data_shards=2, device='cpu')\n"
+        "model = FactoredModel.from_W(torch.ones(8, 4), 2, device='cpu')\n"
+        "MTLServer(model, mesh=mesh).score([0, 3], torch.ones(2, 8))\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
 def test_the_lm_serving_path_leaves_jax_unloaded():
     """The slice-4 modules import, and a seeded model serves a wave on
     the CPU, without JAX or the reference."""
@@ -172,3 +210,10 @@ def test_entry_points_default_to_the_card():
     model = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(model, cfg, batch_size=1, max_len=8, device=None)
+    from repro_torch.runtime import init_cluster, task_data_mesh, task_mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        task_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        task_data_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cluster("file:///unused", 1, 0)

@@ -3,6 +3,7 @@
 
 Ledgers compare with ``==`` (exact), iterates of the two drivers with
 ``torch.equal`` (the port runs one loop for both, so bit-identical)."""
+import datetime
 import pathlib
 import sys
 
@@ -168,12 +169,37 @@ def test_a_round_that_charges_differently_raises():
         rt.run_rounds(4, body, {})
 
 
-def test_make_runtime_names_what_is_not_ported():
+def test_make_runtime_names_what_is_not_ported(tmp_path):
+    """Both backends and the data axis are ported: "sim" with
+    ``data_shards`` gives the 2-D emulation, "mesh" a MeshRuntime over the
+    process group (here a gloo group of this process alone), and "mesh"
+    without a group says how to start one."""
+    import mesh_worlds
+    from repro_torch.runtime import MeshRuntime
     _, tp = _problems()
     assert isinstance(make_runtime("sim", tp), SimRuntime)
-    for kw in ({"backend": "mesh"}, {"backend": "sim", "data_shards": 2}):
-        backend = kw.pop("backend")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            make_runtime(backend, tp, **kw)
+    rt = make_runtime("sim", tp, data_shards=2)
+    assert isinstance(rt, SimRuntime) and rt.data_shards == 2
+    with pytest.raises(RuntimeError, match="init_cluster"):
+        make_runtime("mesh", tp)
+    with mesh_worlds.one_rank_group(tmp_path):
+        rt = make_runtime("mesh", tp)
+        assert isinstance(rt, MeshRuntime)
+        assert (rt.local_tasks, rt.data_index(), rt.data_shards) == (M, 0, 1)
     with pytest.raises(ValueError, match="unknown backend"):
         make_runtime("tpu", tp)
+
+
+def test_mesh_refuses_a_group_init_cluster_did_not_start(tmp_path):
+    """The mesh's subgroups take the timeout ``init_cluster`` gave the
+    world group; a group started some other way has none to give."""
+    import torch.distributed as dist
+    _, tp = _problems()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        with pytest.raises(RuntimeError, match="not started by init_cluster"):
+            make_runtime("mesh", tp)
+    finally:
+        dist.destroy_process_group()

@@ -238,6 +238,8 @@ def test_default_device_is_the_card():
 
 
 def test_mesh_is_not_ported_yet():
+    """The sharded table is ported (tests/test_torch_mesh.py runs it on
+    four ranks); a mesh= that is no DeviceMesh is refused by name."""
     _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh with a 'tasks' axis"):
         tserve.MTLServer(tm, mesh=object())

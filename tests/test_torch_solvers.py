@@ -140,13 +140,27 @@ def test_warm_sv_carry_crosses_from_the_reference():
     assert rt.extras["sv_exact_rounds"] >= int(carry["exact_rounds"])
 
 
-def test_registry_and_what_is_not_ported():
+def test_registry_and_what_is_not_ported(tmp_path):
     assert solver_names() == sorted(repro.core.solver_names())
-    _, tp, _ = _problems("gram")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        repro_torch.solve(tp, method="proxgd", backend="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        repro_torch.solve(tp, method="proxgd", data_shards=2, device="cpu")
+    jp, tp, _ = _problems("gram")
+    # the mesh backend: on a group of this process alone it is the sim,
+    # bit for bit, with the collective floats of its one rank
+    import mesh_worlds
+    kw = dict(method="proxgd", lam=0.02, rounds=4, device="cpu")
+    sim = repro_torch.solve(tp, **kw)
+    with mesh_worlds.one_rank_group(tmp_path):
+        mesh = repro_torch.solve(tp, backend="mesh", **kw)
+    assert torch.equal(mesh.W, sim.W)
+    assert mesh.comm.ledger() == sim.comm.ledger()
+    assert mesh.extras["backend"] == "mesh"
+    assert mesh.extras["collective_floats_per_chip"] == \
+        sim.comm.floats_by_direction("worker->master") * M
+    # the data axis: the sim's 2-D emulation against the reference's
+    rj = repro.solve(jp, method="proxgd", lam=0.02, rounds=4, data_shards=2)
+    rt = repro_torch.solve(tp, data_shards=2, **kw)
+    _assert_same_solve(rj, rt)
+    assert rt.extras["data_shards"] == 2
+    assert rt.extras["data_collective_floats_per_chip"] == 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         repro_torch.solve(tp, method="proxgd", ckpt_dir="unused", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):

@@ -64,8 +64,12 @@ def test_gram_stats_match():
     At, bt = two.gram_stats(torch.from_numpy(X), torch.from_numpy(y))
     np.testing.assert_allclose(_np(At), _np(Aj), **TOL)
     np.testing.assert_allclose(_np(bt), _np(bj), **TOL)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        two.gram_stats(torch.from_numpy(X), torch.from_numpy(y), data_shards=2)
+    # the 2-D layout's Gram: a sum of per-shard partial Grams
+    Aj, bj = jwo.gram_stats(jnp.asarray(X), jnp.asarray(y), data_shards=2)
+    At, bt = two.gram_stats(torch.from_numpy(X), torch.from_numpy(y),
+                            data_shards=2)
+    np.testing.assert_allclose(_np(At), _np(Aj), **TOL)
+    np.testing.assert_allclose(_np(bt), _np(bj), **TOL)
 
 
 GRAD_IMPLS = [("gram", "gram"), ("kernel", "pallas"), ("torch", "xla")]
