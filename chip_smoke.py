@@ -63,6 +63,21 @@ raises and the script exits non-zero:
    below ``W=0``'s excess risk); the sharded code table on the serve
    configuration, bitwise equal to the unsharded server, through
    ``mtl_score``; the group is torn down at the end;
+9c. recovery, device metrics and streaming: through the fault harness
+   (``repro_torch.faults``), child processes on the card run path B's
+   DGSP (10 rounds, a checkpoint every 3) SIGKILLed after segment 2, and
+   path D's stochastic ProxGD (B=500, L=4) killed after segment 3 with
+   that segment corrupted, at one and at four data shards; one
+   ``resume`` in a fresh child finishes each, bitwise equal to an
+   uninterrupted child's W, iterates, ledger and counters, launching
+   ``mtl_grad`` / ``prox_step`` for the rounds it ran; ``metrics=True``
+   on path A's lazy ProxGD and path B's DGSP leaves W bitwise unchanged,
+   the objective (and DGSP's step norm) held to a recomputation, the
+   round time with and without metrics in paired solves; three
+   streaming refreshes of stochastic ProxGD on path B's spec, each
+   published to a live ``MTLServer`` whose wave of 256 scores is held to
+   ``X W_r`` of the new model, with the store step, the swap log and
+   the staleness gauges;
 10. the LM serving path of gemma2-2b at full width: (a) the
    ``flash_attention`` kernels against their plain version at the served
    shapes (prefill B=4 S=5120 global and with the 4096 window binding,
@@ -118,7 +133,7 @@ raises and the script exits non-zero:
    decode times, and a ``torch.profiler`` window over one wave.
 
 Phase 3 also checks the seeded sampler on the card against the CPU,
-bit for bit, and times a draw.  Phases 4, 6-9b and the served waves and
+bit for bit, and times a draw.  Phases 4, 6-9c and the served waves and
 f32 anchors of 10 and 11 each set the launch counters to 0 just before
 they run and read them just after.  It prints a ``{"kernels": [...]}`` line and,
 last, the contract line ``{"ok": true, "device": {...}}``.  Without a
@@ -131,6 +146,7 @@ import concurrent.futures
 import contextlib
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -914,7 +930,8 @@ def path_a(score_ops, grad_ops):
                       if kernels else None}
     log(f"[path A] profiled one lazy {rounds}-round solve: "
         + describe_profile(kernels, window_us, top=8))
-    return out
+    return out, {"prob": prob, "kw": dict(kw, rounds=rounds,
+                                          sv_engine="lazy")}
 
 
 def path_b(grad_ops):
@@ -1338,6 +1355,246 @@ def mesh_phase(grad_ops, prox_ops, score_ops, path_d_data):
         if dist.is_initialized():
             dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9c, preemption-safe solves, device round metrics, streaming
+# ---------------------------------------------------------------------------
+REC_EVERY = 3                    # segments end at rounds 3, 6, 9, 10
+# the killed solves, each resumed once through the fault harness:
+# (name, fault kind, path, solve arguments, data shards)
+REC_CASES = (
+    ("B dgsp sigkill", "sigkill", "B", {"method": "dgsp", "rounds": 10}, 1),
+    ("D proxgd corrupt", "corrupt", "D",
+     {"method": "proxgd", "rounds": 10, "lam": 0.01, "batch_size": D_BATCH,
+      "local_steps": 4, "batch_seed": 0}, 1),
+    (f"D proxgd corrupt D={MESH_D}", "corrupt", "D",
+     {"method": "proxgd", "rounds": 10, "lam": 0.01, "batch_size": D_BATCH,
+      "local_steps": 4, "batch_seed": 0}, MESH_D),
+)
+METRICS_RTOL = 1e-5              # objective vs lam * ||W_k||_*, recomputed
+STREAM = dict(rounds=5, lam=0.02, local_steps=4, refreshes=3)
+REC_TARGET_S = 60.0              # the phase's time budget (reported)
+
+
+def _sync(dev) -> None:
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def recovery_phase(grad_ops, prox_ops, score_ops, a_data, d_data,
+                   dev="cuda"):
+    """Phase 9c: (1) path B's DGSP SIGKILLed after segment 2 in a child
+    process on the card, path D's stochastic ProxGD killed and its newest
+    segment corrupted, at D=1 and at D=4 on the sim's 2-D emulation, each
+    finished by one ``resume`` in a fresh child and held bitwise to an
+    uninterrupted child run (``repro_torch.faults``, the children started
+    together); (2) ``metrics=True`` on path A's lazy ProxGD and path B's
+    DGSP, W bitwise the ``metrics=False`` solve's, the objective against
+    a recomputation, the round time with and without metrics in paired
+    solves; (3) three streaming refreshes of stochastic ProxGD on path
+    B's spec, each published to a live ``MTLServer`` whose scores are
+    held to ``X W_r`` of the new model."""
+    import repro_torch
+    from repro_torch import faults
+    from repro_torch.core.methods import MTLProblem
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve.mtl import MTLServer
+    from repro_torch.train.streaming import SampleStream, StreamingResolver
+    t_phase = time.perf_counter()
+    out = {"faults": {}, "metrics": {}, "streaming": {}}
+    work = tempfile.mkdtemp(prefix="recovery_")
+    try:
+        grad_ops.task_gradients.launches = 0       # count this phase only
+        prox_ops.prox_step.launches = 0
+        score_ops.mtl_score.launches = 0
+        Xb, yb, Wstar_b, Sigma_b = sim_data(**FULL, seed=SEED, device=dev,
+                                            task="classification")
+        prob_b = MTLProblem.make(Xb, yb, "logistic", A=2.0, r=FULL["r"],
+                                 device=dev)
+
+        # (1) the killed solves, through the harness, on the card
+        t0 = time.perf_counter()
+        files = {"B": os.path.join(work, "path_b.npz"),
+                 "D": os.path.join(work, "path_d.npz")}
+        faults.save_problem(files["B"], prob_b)
+        faults.save_problem(files["D"], d_data["probs"]["squared"])
+        cases = [{"kind": kind, "problem": files[path], "solve": kw,
+                  "every": REC_EVERY, "data_shards": ds,
+                  "dir": f"case{i}"}
+                 for i, (_, kind, path, kw, ds) in enumerate(REC_CASES)]
+        reports = faults.run_cases(cases, os.path.join(work, "faults"),
+                                   device=dev.split(":")[0], parallel=True)
+        t_faults = time.perf_counter() - t0
+        child = {"mtl_grad": 0, "prox_step": 0}
+        for (name, kind, path, kw, ds), rep in zip(REC_CASES, reports):
+            kernel = "mtl_grad" if path == "B" else "prox_step"
+            base_n = rep["launches"]["baseline"][kernel]
+            res_n = rep["launches"]["resumed"][kernel]
+            rounds = kw["rounds"]
+            left = rounds - rep["resumed_from"]
+            check(rep["killed"] and rep["bit_identical"] and rep["recovered"],
+                  f"recovery {name}: {rep}")
+            check(base_n > 0 and base_n % rounds == 0 and
+                  res_n == base_n // rounds * left,
+                  f"recovery {name}: {res_n} {kernel} launches in the resume "
+                  f"of {left} rounds, {base_n} in the uninterrupted "
+                  f"{rounds}")
+            for side in ("baseline", "resumed"):
+                for k in child:
+                    child[k] += rep["launches"][side][k]
+            out["faults"][name] = {
+                "kind": kind, "data_shards": ds, "exit_code": rep["exit_code"],
+                "resumed_from": rep["resumed_from"], "kernel": kernel,
+                "launches_baseline": base_n, "launches_resumed": res_n,
+                "baseline_s": rep["seconds"]["baseline"],
+                "resumed_s": rep["seconds"]["resumed"]}
+            log(f"[recovery] {name}: child killed (exit {rep['exit_code']}),"
+                f" resumed from round {rep['resumed_from']} of {rounds} by "
+                f"one resume: W, iterates, ledger and counters bitwise the "
+                f"uninterrupted card run's; {kernel} launches {res_n} in the "
+                f"resume = {base_n}/{rounds} x {left} rounds; solve "
+                f"{rep['seconds']['baseline']:.3f} s uninterrupted, "
+                f"{rep['seconds']['resumed']:.3f} s resumed")
+        out["faults_s"] = t_faults
+        log(f"[recovery] {len(reports)} fault cases (baselines and faulted "
+            f"children together, then the resumes) in {t_faults:.1f} s")
+
+        # (2) device round metrics, paired with metrics off
+        pa = a_data["prob"]
+        for label, prob, kw, kernel in (
+                ("A proxgd lazy", pa, a_data["kw"], grad_ops.task_gradients),
+                ("B dgsp", prob_b, {"method": "dgsp", "rounds": 10},
+                 grad_ops.task_gradients)):
+            kw = dict(kw, device=dev)
+            rounds = kw.pop("rounds")
+            runs = alternating_solves(
+                repro_torch.solve, prob, rounds,
+                {"off": dict(kw), "on": dict(kw, metrics=True)}, kernel)
+            (off, r_off, k_off), (on, r_on, k_on) = runs["off"], runs["on"]
+            mtr = on.extras["metrics"]
+            check(torch.equal(on.W, off.W) and
+                  on.comm.ledger() == off.comm.ledger() and k_on == k_off,
+                  f"metrics {label}: W, ledger or launches moved")
+            check(mtr["round"].tolist() == list(range(1, rounds + 1)) and
+                  all(np.all(np.isfinite(mtr[f])) for f in
+                      ("objective", "grad_norm", "step_norm")),
+                  f"metrics {label}: bad per-round arrays")
+            if kw["method"] == "proxgd":
+                # the objective is lam * ||W_k||_* of the round's iterate
+                idx = sorted({*range(rounds // 5 - 1, rounds, rounds // 5),
+                              rounds - 1})
+                errs = []
+                for k in idx:
+                    want = kw["lam"] * float(torch.linalg.svdvals(
+                        on.iterates[k + 1].double()).sum())
+                    errs.append(abs(float(mtr["objective"][k]) - want)
+                                / want)
+                what = f"objective vs lam*||W_k||_* at {len(idx)} rounds"
+            else:
+                # no shrink: the objective term is 0; step_norm is the
+                # appended basis column's norm, recomputed from U
+                col = torch.linalg.vector_norm(on.extras["U"].double(), dim=0)
+                errs = [abs(float(mtr["step_norm"][k]) - float(col[k]))
+                        / float(col[k]) for k in range(rounds)]
+                errs.append(float(np.abs(mtr["objective"]).max()))
+                what = "step_norm vs ||U[:, k]||, objective 0"
+            err = max(errs)
+            check(err <= METRICS_RTOL, f"metrics {label}: {what} off by "
+                  f"{err} relative")
+            out["metrics"][label] = {
+                "rounds": rounds, "max_rel_err": err, "launches_a_solve": k_on,
+                "round_s_off": r_off, "round_s_on": r_on,
+                "sv_exact_last": int(mtr["sv_exact"][-1])}
+            log(f"[metrics] {label}: W and ledger bitwise metrics=False's, "
+                f"{k_on} {kernel.__name__} launches a solve on both; {what}: "
+                f"max rel err {err:.3e} (tol {METRICS_RTOL:g}); a round "
+                f"{round_line(r_on)} with metrics, {round_line(r_off)} without"
+                f" (median and range of {MESH_REPS} {rounds}-round solves "
+                f"each, in turns)")
+
+        # (3) the streaming re-solver on path B's spec
+        store = os.path.join(work, "models")
+        reg = MetricsRegistry()
+        res0 = repro_torch.solve(prob_b, method="proxgd",
+                                 rounds=STREAM["rounds"], lam=STREAM["lam"],
+                                 keep_sv_carry=True, device=dev)
+        model0 = res0.factorize(FULL["r"])
+        model0.save(store)
+        server = MTLServer(model0, batch_size=WAVE, registry=reg)
+        stream = SampleStream(Wstar_b, Sigma_b, task="classification",
+                              seed=SEED, device=dev)
+        resolver = StreamingResolver(
+            prob_b, server, store, method="proxgd", rank=FULL["r"],
+            rounds=STREAM["rounds"], batch_size=D_BATCH,
+            local_steps=STREAM["local_steps"], warm_from=res0,
+            solver_hp={"lam": STREAM["lam"]}, registry=reg)
+        rng = np.random.default_rng(SEED + 2)
+        ids = torch.from_numpy(rng.integers(0, FULL["m"], WAVE)
+                               .astype(np.int32)).to(dev)
+        X = torch.from_numpy(rng.standard_normal((WAVE, FULL["p"]))
+                             .astype(np.float32)).to(dev)
+        refreshes = []
+        for i in range(STREAM["refreshes"]):
+            swaps, steps0 = len(server.swap_log), i + 1
+            p0 = prox_ops.prox_step.launches
+            t0 = time.perf_counter()
+            rep = resolver.step(stream, D_BATCH)
+            _sync(dev)
+            secs = time.perf_counter() - t0
+            n0 = score_ops.mtl_score.launches
+            scores, ver = server.score(ids, X)
+            want = (X * server.model.dense().index_select(1, ids.long()).T
+                    ).sum(1)
+            _sync(dev)
+            err = float((scores - want).abs().max())
+            scale = float(want.abs().max())
+            snap = reg.snapshot()["metrics"]
+            stale = (snap["streaming_staleness_oldest_seconds"]["value"],
+                     snap["streaming_staleness_newest_seconds"]["value"])
+            check(rep["reloaded"] and rep["store_step"] == steps0 and
+                  len(server.swap_log) == swaps + 1 and
+                  ver == rep["served_version"] and
+                  ver not in [r["version"] for r in refreshes] and
+                  score_ops.mtl_score.launches - n0 == 1 and
+                  err <= SERVE_RTOL * scale and min(stale) > 0 and
+                  prox_ops.prox_step.launches - p0 ==
+                  STREAM["rounds"] * STREAM["local_steps"],
+                  f"streaming refresh {i}: {rep}, served error {err} vs "
+                  f"{SERVE_RTOL} x {scale}, staleness {stale}")
+            refreshes.append({"store_step": rep["store_step"], "version": ver,
+                              "refresh_s": secs, "solve_s": rep["solve_s"],
+                              "staleness_oldest_s": stale[0],
+                              "staleness_newest_s": stale[1],
+                              "served_max_abs_err": err,
+                              "served_scale": scale})
+            log(f"[stream] refresh {i}: {D_BATCH} new rows a task ingested, "
+                f"stochastic ProxGD {STREAM['rounds']} rounds x "
+                f"{STREAM['local_steps']} local steps ("
+                f"{STREAM['rounds'] * STREAM['local_steps']} prox_step "
+                f"launches), published store step {rep['store_step']}, the "
+                f"live server swapped to {ver}; {WAVE} requests vs X W_r "
+                f"max|err| {err:.3e} (tol {SERVE_RTOL:g} x {scale:.3e}); "
+                f"refresh {secs:.3f} s (solve, factorize, publish "
+                f"{rep['solve_s']:.3f} s); staleness oldest "
+                f"{stale[0] * 1e3:.1f} ms, newest {stale[1] * 1e3:.1f} ms")
+        out["streaming"] = {"refreshes": refreshes,
+                            "swap_log": len(server.swap_log)}
+        out["launches"] = {"mtl_grad": grad_ops.task_gradients.launches,
+                           "prox_step": prox_ops.prox_step.launches,
+                           "mtl_score": score_ops.mtl_score.launches}
+        out["child_launches"] = child
+        check(all(v > 0 for v in out["launches"].values()) and
+              all(v > 0 for v in child.values()),
+              f"phase 9c left a kernel unlaunched: {out['launches']}, "
+              f"children {child}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[recovery] phase 9c in {out['phase_s']:.1f} s (target "
+        f"{REC_TARGET_S:.0f} s); launches in this process "
+        f"{out['launches']}, in its children {child}")
     return out
 
 
@@ -3165,17 +3422,22 @@ def main() -> int:
         shutil.rmtree(store, ignore_errors=True)
 
     # -- 6-9. the solver paths ----------------------------------------------
-    a = path_a(score_ops, grad_ops)
+    a, a_data = path_a(score_ops, grad_ops)
     b = path_b(grad_ops)
     c = path_c(grad_ops)
     d, d_data = path_d(grad_ops, prox_ops)
 
     # -- 9b. the mesh runtime ------------------------------------------------
     mesh = mesh_phase(grad_ops, prox_ops, score_ops, d_data)
-    del d_data
+
+    # -- 9c. recovery, device metrics and the streaming re-solver ----------
+    rec = recovery_phase(grad_ops, prox_ops, score_ops, a_data, d_data)
+    del d_data, a_data
     grad_launches = (a["launches"]["mtl_grad"] + b["launches"]["mtl_grad"]
                      + c["launches"]["mtl_grad"] + d["launches"]["mtl_grad"]
-                     + mesh["launches"]["mtl_grad"])
+                     + mesh["launches"]["mtl_grad"]
+                     + rec["launches"]["mtl_grad"]
+                     + rec["child_launches"]["mtl_grad"])
     check(a["launches"]["mtl_grad"] > 0 and b["launches"]["mtl_grad"] > 0,
           "the solver paths never launched mtl_grad")
 
@@ -3197,10 +3459,12 @@ def main() -> int:
         "source": "src_torch/repro_torch/kernels/mtl_score/csrc/mtl_score.cu",
         "replaces": "src/repro/kernels/mtl_score/kernel.py:57",
         "launches": (main_launches + a["launches"]["mtl_score"]
-                     + mesh["launches"]["mtl_score"]),
+                     + mesh["launches"]["mtl_score"]
+                     + rec["launches"]["mtl_score"]),
         "launches_by_path": {"serve": main_launches,
                              "solver A": a["launches"]["mtl_score"],
-                             "mesh": mesh["launches"]["mtl_score"]},
+                             "mesh": mesh["launches"]["mtl_score"],
+                             "recovery": rec["launches"]["mtl_score"]},
         "max_abs_err": max_abs_err,
         "ms": main_row["kernel_ms"],
         "kernel_ms": main_row["kernel_ms"],
@@ -3222,7 +3486,10 @@ def main() -> int:
                              "solver B": b["launches"]["mtl_grad"],
                              "solver C": c["launches"]["mtl_grad"],
                              "solver D": d["launches"]["mtl_grad"],
-                             "mesh": mesh["launches"]["mtl_grad"]},
+                             "mesh": mesh["launches"]["mtl_grad"],
+                             "recovery": rec["launches"]["mtl_grad"],
+                             "recovery children":
+                                 rec["child_launches"]["mtl_grad"]},
         "max_abs_err": grad_err,
         "ms": grad_row["kernel_ms"],
         "kernel_ms": grad_row["kernel_ms"],
@@ -3240,9 +3507,15 @@ def main() -> int:
         "route": "cuda",
         "source": "src_torch/repro_torch/kernels/mtl_grad/csrc/mtl_grad.cu",
         "replaces": "src/repro/kernels/prox_step/kernel.py:69",
-        "launches": d["launches"]["prox_step"] + mesh["launches"]["prox_step"],
+        "launches": (d["launches"]["prox_step"]
+                     + mesh["launches"]["prox_step"]
+                     + rec["launches"]["prox_step"]
+                     + rec["child_launches"]["prox_step"]),
         "launches_by_path": {"solver D": d["launches"]["prox_step"],
-                             "mesh": mesh["launches"]["prox_step"]},
+                             "mesh": mesh["launches"]["prox_step"],
+                             "recovery": rec["launches"]["prox_step"],
+                             "recovery children":
+                                 rec["child_launches"]["prox_step"]},
         "max_abs_err": prox_err,
         "ms": prox_rows[0]["kernel_ms"],
         "kernel_ms": prox_rows[0]["kernel_ms"],
@@ -3339,6 +3612,7 @@ def main() -> int:
                   "profiled_device_busy_share": busy if kernels else None,
                   "profiled_kernel_us": kernels},
         "solver": {"A": a, "B": b, "C": c, "D": d}, "mesh": mesh,
+        "recovery": rec,
         "sampler": sampler,
         "lm": lm, "mamba": mamba}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

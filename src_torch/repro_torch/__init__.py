@@ -13,8 +13,13 @@ solvers on the simulated cluster behind :func:`solve` (the raw-path
 gradient kernel, :mod:`repro_torch.kernels.mtl_grad`), and their
 stochastic rounds on the reference's own threefry draws
 (:mod:`repro_torch.core.prng`, :mod:`repro_torch.data.synthetic`; the
-fused local-step kernel, :mod:`repro_torch.kernels.prox_step`).  The
-kernels are written by hand in CUDA C++ for ``sm_90a``.
+fused local-step kernel, :mod:`repro_torch.kernels.prox_step`), the mesh
+runtime on ``torch.distributed``, preemption-safe solves (``solve(...,
+ckpt_dir=)`` and :func:`resume`, with the fault harness
+:mod:`repro_torch.faults`), device round metrics (``metrics=True``), the
+streaming re-solver (:mod:`repro_torch.train.streaming`) and the LM
+serving paths.  The kernels are written by hand in CUDA C++ for
+``sm_90a``.
 """
 from ._device import resolve_device
 
@@ -24,7 +29,10 @@ def __getattr__(name):
     if name == "solve":
         from .api import solve
         return solve
+    if name == "resume":
+        from .api import resume
+        return resume
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["resolve_device", "solve"]
+__all__ = ["resolve_device", "resume", "solve"]

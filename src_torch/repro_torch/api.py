@@ -10,6 +10,9 @@ the hand-off to the serving half::
     res = repro_torch.solve(prob, method="proxgd", rounds=50, lam=0.01)
     model = res.factorize(rank=prob.r)        # (U, s, V) on the card
     server = MTLServer(model)                 # mtl_score kernel per wave
+
+A solve with ``ckpt_dir=`` survives preemption: ``resume(ckpt_dir)``
+finishes it bit-identically.
 """
 from __future__ import annotations
 
@@ -45,11 +48,24 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
     ``local_steps`` / ``batch_seed`` run the stochastic worker path of a
     gradient-served solver (``STOCHASTIC_SOLVERS``) on the reference's
     seeded draws; ``batch_size == n`` with ``local_steps == 1`` is the
-    full-batch solve.  What the port cannot run yet raises
+    full-batch solve.  ``scan`` is accepted and changes nothing: both
+    drivers are one eager loop.  What the port cannot run yet raises
     ``NotImplementedError`` naming the ROADMAP item that brings it:
-    ``metrics=True`` (item 8), ``verify=`` (item 9) and
-    ``checkpoint_every=`` / ``ckpt_dir=`` (item 6).  ``scan`` is
-    accepted and changes nothing: both drivers are one eager loop.
+    ``verify=`` (item 9).
+
+    ``ckpt_dir`` / ``checkpoint_every`` / ``ckpt_keep`` make the solve
+    preemption-safe (:mod:`repro_torch.runtime.recovery`): the rounds run
+    in ``checkpoint_every``-round segments (default
+    ``recovery.DEFAULT_SEGMENT``) whose whole carry is saved to the
+    store after each one, keeping the newest ``ckpt_keep`` (None: all).
+    A killed solve restarts through :func:`resume` (or the same
+    ``solve`` call, which picks up the newest intact segment) and ends
+    with ``W``, iterates, ledger and collective floats bit-identical to
+    an uninterrupted run; ``result.extras["checkpoint"]`` holds the
+    segment bookkeeping.  ``metrics=True`` records per-round device
+    metrics (:mod:`repro_torch.obs.device`) into
+    ``result.extras["metrics"]``, leaving ``W`` and the ledger
+    bit-identical to ``metrics=False``.
 
     ``device`` is where the solve runs, the card by default (raising
     without one); ``prob`` must already lie there ("cuda" without an
@@ -84,10 +100,6 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
     if verify is not None:
         raise NotImplementedError(
             "verify= comes with the static checks, ROADMAP Queue 1 item 9")
-    if ckpt_dir is not None or checkpoint_every is not None:
-        raise NotImplementedError(
-            "checkpoint_every= / ckpt_dir= come with recovery, ROADMAP "
-            "Queue 1 item 6")
     if runtime is None:
         runtime = make_runtime(backend, prob, mesh=mesh, axis=axis,
                                data_axis=data_axis, data_shards=data_shards)
@@ -97,6 +109,23 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
         hp["scan"] = scan
     if sv_engine is not None:
         hp["sv_engine"] = sv_engine
+    ckpt = None
+    if ckpt_dir is not None or checkpoint_every is not None:
+        if ckpt_dir is None:
+            raise ValueError("checkpoint_every needs ckpt_dir= (where "
+                             "the solve store lives)")
+        from .runtime.recovery import (DEFAULT_SEGMENT, SolveCheckpointer,
+                                       write_store)
+        every = DEFAULT_SEGMENT if checkpoint_every is None \
+            else checkpoint_every
+        config = {"method": method, "backend": backend, "axis": axis,
+                  "data_axis": data_axis, "data_shards": data_shards,
+                  "checkpoint_every": every, "ckpt_keep": ckpt_keep,
+                  "hp": hp}
+        write_store(ckpt_dir, prob, config)
+        ckpt = SolveCheckpointer(ckpt_dir, every=every, keep=ckpt_keep)
+        ckpt.load_resume()      # nothing to load in a fresh store
+        runtime._ckpt = ckpt
     with trace_span("solve", method=method, backend=runtime.name,
                     data_shards=runtime.data_shards, metrics=bool(metrics)):
         res = get_solver(method)(prob, runtime=runtime, **hp)
@@ -109,10 +138,14 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
         runtime.collective_floats_per_chip
     res.extras["data_collective_floats_per_chip"] = \
         runtime.data_collective_floats_per_chip
+    if ckpt is not None:
+        res.extras["checkpoint"] = dict(ckpt.info)
     return res
 
 
-def resume(ckpt_dir: str, *, mesh=None):
-    """Restart a checkpointed solve: not ported yet."""
-    raise NotImplementedError(
-        "resume comes with recovery, ROADMAP Queue 1 item 6")
+def resume(ckpt_dir: str, *, mesh=None, device: DeviceLike = None):
+    """Restart a checkpointed solve from its store: the one-argument
+    recovery front door (:func:`repro_torch.runtime.recovery.resume`),
+    on ``device`` (default: the card)."""
+    from .runtime.recovery import resume as _resume
+    return _resume(ckpt_dir, mesh=mesh, device=device)

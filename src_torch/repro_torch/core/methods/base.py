@@ -19,11 +19,6 @@ from ..._device import DeviceLike, resolve_device
 from ..comm import CommLog
 from ..losses import Loss, get_loss
 
-# what the device metrics channel waits for
-METRICS_TODO = ("metrics=True comes with the device round metrics "
-                "(obs/device.py), ROADMAP Queue 1 item 8")
-
-
 @dataclasses.dataclass
 class MTLProblem:
     Xs: torch.Tensor           # (m, n, p) per-machine designs
@@ -161,13 +156,6 @@ def stamp_sgd(res: MTLResult, sgd) -> None:
         res.extras.update(batch_size=sgd[0], local_steps=sgd[1])
 
 
-def refuse_metrics(metrics: bool) -> None:
-    """Raise ``NotImplementedError`` for ``metrics=True``, which the port
-    cannot run yet."""
-    if metrics:
-        raise NotImplementedError(METRICS_TODO)
-
-
 def stochastic_round_leaves(prob: MTLProblem):
     """Data leaves a stochastic round body reads (the reference's list)."""
     return ("Xs", "ys", "task_ids")
@@ -187,6 +175,32 @@ def iterate_recorder(res: "MTLResult", record_every: int, key: str = "W"):
     ``record_every`` rounds (and always the final round)."""
     from ...runtime.base import RecordSpec
     return RecordSpec(sink=res, every=record_every, key=key)
+
+
+def metrics_channel(metrics: bool, prob: MTLProblem):
+    """The device round-metrics channel (:mod:`repro_torch.obs.device`):
+    ``(initial obs entry, RecordSpec, sink)`` when ``metrics`` is on,
+    else ``None``.
+
+    The solver adds the entry to its round-loop state (replicated: it
+    never enters ``sharded``), updates it in the body with ``obs_round``
+    from master-visible quantities only (no new collective, the same
+    ledger), passes the RecordSpec beside its iterate recorder, and
+    stamps ``sink.finalize(rt)`` into ``extras["metrics"]``.
+    """
+    if not metrics:
+        return None
+    from ...obs.device import OBS_KEY, RoundMetricsSink, obs_init
+    from ...runtime.base import RecordSpec
+    sink = RoundMetricsSink()
+    return (obs_init(prob.device), RecordSpec(sink=sink, every=1,
+                                              key=OBS_KEY), sink)
+
+
+def compose_records(base, channel):
+    """``run_rounds(record=...)`` from the iterate recorder plus an
+    optional metrics channel."""
+    return base if channel is None else (base, channel[1])
 
 
 def default_runtime(prob: MTLProblem, runtime=None):

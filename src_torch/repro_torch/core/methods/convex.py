@@ -33,9 +33,11 @@ import torch
 
 from .. import spectral, worker_ops
 from ..spectral import leading_sv
-from .base import (MTLProblem, MTLResult, default_runtime, gram_round_leaves,
-                   iterate_recorder, refuse_metrics, register, stamp_sgd,
-                   stochastic_config, stochastic_round_leaves)
+from ...obs.device import obs_round
+from .base import (MTLProblem, MTLResult, compose_records, default_runtime,
+                   gram_round_leaves, iterate_recorder, metrics_channel,
+                   register, stamp_sgd, stochastic_config,
+                   stochastic_round_leaves)
 
 
 def _power_lmax(op, m: int, p: int, like: torch.Tensor) -> torch.Tensor:
@@ -118,8 +120,10 @@ def _round_leaves(prob, sgd):
         else stochastic_round_leaves(prob)
 
 
-def _finish(res, sv, state, keep_sv_carry):
+def _finish(res, sv, state, keep_sv_carry, rt=None, mc=None):
     res.extras.update(sv.stats(state["sv"]))
+    if mc is not None:
+        res.extras["metrics"] = mc[2].finalize(rt)
     if keep_sv_carry:
         res.extras["sv_carry"] = state["sv"]
     return res
@@ -134,22 +138,29 @@ def proxgd(prob: MTLProblem, lam: float = 1e-3, rounds: int = 200,
            sv_carry=None, keep_sv_carry: bool = False,
            metrics: bool = False, **_) -> MTLResult:
     rt = default_runtime(prob, runtime)
-    refuse_metrics(metrics)
     if eta is None:
         eta = 1.0 / data_smoothness(prob)
     m = prob.m
     sv = spectral.shrink_engine(prob, sv_engine, rank=sv_rank)
     sgd = stochastic_config(prob, batch_size, local_steps, rt.data_shards)
+    mc = metrics_channel(metrics, prob)
+
+    def master(state, M, G):
+        W_new, nn, svc = sv.shrink(M, eta * m * lam, state["sv"])
+        out = {"W": rt.broadcast(W_new, "updated predictor"), "sv": svc}
+        if metrics:
+            # no full-batch gradient in a stochastic round (G is None)
+            out["obs"] = obs_round(state["W"], W_new, grad=G,
+                                   objective=lam * nn,
+                                   sv_stats=sv.device_stats(svc))
+        return out
 
     if sgd is None:
         def body(k, state, data):
             G = _grad_columns(rt, prob, state["W"], data, "gradient column")
             # master prox step (3.3); grad of (1/m)sum L_nj carries 1/m,
             # the per-task smoothness is H/m so the per-W step uses eta*m
-            W_new, _, svc = sv.shrink(state["W"] - eta * m * G,
-                                      eta * m * lam, state["sv"])
-            return {"W": rt.broadcast(W_new, "updated predictor"),
-                    "sv": svc}
+            return master(state, state["W"] - eta * m * G, G)
     else:
         B, L = sgd
 
@@ -164,21 +175,22 @@ def proxgd(prob: MTLProblem, lam: float = 1e-3, rounds: int = 200,
                     round_k=k, local_step=i, batch_size=B, eta=eta * m,
                     m=m)
             W_gath = rt.gather_columns(Wl, "locally stepped columns")
-            W_new, _, svc = sv.shrink(W_gath, eta * m * lam, state["sv"])
-            return {"W": rt.broadcast(W_new, "updated predictor"),
-                    "sv": svc}
+            return master(state, W_gath, None)
 
     state = {"W": _init_W(prob, init, init_W),
              "sv": _sv_carry0(sv, sv_carry)}
+    if mc is not None:
+        state["obs"] = mc[0]
     res = MTLResult("proxgd", state["W"], rt.comm,
                     extras={"lam": lam, "eta": eta, "sv_engine": sv.mode})
     stamp_sgd(res, sgd)
     res.record(0, state["W"])
     state = rt.run_rounds(rounds, body, state, scan=scan,
-                          record=iterate_recorder(res, record_every),
+                          record=compose_records(
+                              iterate_recorder(res, record_every), mc),
                           data_leaves=_round_leaves(prob, sgd))
     res.W = state["W"]
-    return _finish(res, sv, state, keep_sv_carry)
+    return _finish(res, sv, state, keep_sv_carry, rt, mc)
 
 
 @register("accproxgd")
@@ -190,27 +202,31 @@ def accproxgd(prob: MTLProblem, lam: float = 1e-3, rounds: int = 200,
               sv_carry=None, keep_sv_carry: bool = False,
               metrics: bool = False, **_) -> MTLResult:
     rt = default_runtime(prob, runtime)
-    refuse_metrics(metrics)
     if eta is None:
         eta = 1.0 / data_smoothness(prob)
     m = prob.m
     sv = spectral.shrink_engine(prob, sv_engine, rank=sv_rank)
     sgd = stochastic_config(prob, batch_size, local_steps, rt.data_shards)
+    mc = metrics_channel(metrics, prob)
 
-    def master(state, Z_stepped):
+    def master(state, Z_stepped, G):
         W, t = state["W"], state["t"]
-        W_new, _, svc = sv.shrink(Z_stepped, eta * m * lam,
-                                  state["sv"])                   # (3.4)
+        W_new, nn, svc = sv.shrink(Z_stepped, eta * m * lam,
+                                   state["sv"])                  # (3.4)
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
         Z_new = W_new + ((t - 1.0) / t_new) * (W_new - W)        # (3.5)
-        return {"W": W_new, "Z": rt.broadcast(Z_new, "updated Z column"),
-                "t": t_new, "sv": svc}
+        out = {"W": W_new, "Z": rt.broadcast(Z_new, "updated Z column"),
+               "t": t_new, "sv": svc}
+        if metrics:
+            out["obs"] = obs_round(W, W_new, grad=G, objective=lam * nn,
+                                   sv_stats=sv.device_stats(svc))
+        return out
 
     if sgd is None:
         def body(k, state, data):
             Z = state["Z"]
             G = _grad_columns(rt, prob, Z, data, "gradient at Z")
-            return master(state, Z - eta * m * G)
+            return master(state, Z - eta * m * G, G)
     else:
         B, L = sgd
 
@@ -225,21 +241,24 @@ def accproxgd(prob: MTLProblem, lam: float = 1e-3, rounds: int = 200,
                     round_k=k, local_step=i, batch_size=B, eta=eta * m,
                     m=m)
             Z_stepped = rt.gather_columns(Zl, "locally stepped Z columns")
-            return master(state, Z_stepped)
+            return master(state, Z_stepped, None)
 
     W0 = _init_W(prob, init, init_W)
     state = {"W": W0, "Z": W0,
              "t": torch.tensor(1.0, dtype=W0.dtype, device=W0.device),
              "sv": _sv_carry0(sv, sv_carry)}
+    if mc is not None:
+        state["obs"] = mc[0]
     res = MTLResult("accproxgd", state["W"], rt.comm,
                     extras={"lam": lam, "eta": eta, "sv_engine": sv.mode})
     stamp_sgd(res, sgd)
     res.record(0, state["W"])
     state = rt.run_rounds(rounds, body, state, scan=scan,
-                          record=iterate_recorder(res, record_every),
+                          record=compose_records(
+                              iterate_recorder(res, record_every), mc),
                           data_leaves=_round_leaves(prob, sgd))
     res.W = state["W"]
-    return _finish(res, sv, state, keep_sv_carry)
+    return _finish(res, sv, state, keep_sv_carry, rt, mc)
 
 
 @register("admm")
@@ -260,10 +279,10 @@ def admm(prob: MTLProblem, lam: float = 1e-3, rho: float = 1.0,
     Lagrangian, each on a seeded mini-batch — an inexact-ADMM worker,
     still 3 charged vectors per round."""
     rt = default_runtime(prob, runtime)
-    refuse_metrics(metrics)
     loss, m, p = prob.loss, prob.m, prob.p
     sv = spectral.shrink_engine(prob, sv_engine, rank=sv_rank)
     sgd = stochastic_config(prob, batch_size, local_steps, rt.data_shards)
+    mc = metrics_channel(metrics, prob)
     if sgd is not None:
         B, L = sgd
         # the augmented Lagrangian's per-column smoothness: the data
@@ -287,24 +306,34 @@ def admm(prob: MTLProblem, lam: float = 1e-3, rho: float = 1.0,
         z_loc, q_loc = rt.local_slice(Z), rt.local_slice(Q)
         W_local = worker(k, W_local, z_loc, q_loc, data)
         W_full = rt.gather_columns(W_local, "local w")
-        Z_new, _, svc = sv.shrink(W_full + Q / rho, lam / rho,
-                                  state["sv"])                   # (A.2)
+        Z_new, nn, svc = sv.shrink(W_full + Q / rho, lam / rho,
+                                   state["sv"])                  # (A.2)
         Q_new = Q + rho * (W_full - Z_new)                       # (A.3)
-        return {"W": W_local, "Z": rt.broadcast(Z_new, "z columns"),
-                "Q": rt.broadcast(Q_new, "q columns"), "sv": svc}
+        out = {"W": W_local, "Z": rt.broadcast(Z_new, "z columns"),
+               "Q": rt.broadcast(Q_new, "q columns"), "sv": svc}
+        if metrics:
+            # the grad slot reports the primal residual W - Z (the
+            # gathered W_full is master-visible; the local W is sharded)
+            out["obs"] = obs_round(Z, Z_new, grad=W_full - Z_new,
+                                   objective=lam * nn,
+                                   sv_stats=sv.device_stats(svc))
+        return out
 
     W0 = torch.zeros((p, m), dtype=prob.Xs.dtype, device=prob.device)
     state = {"W": W0, "Z": W0, "Q": W0, "sv": _sv_carry0(sv, sv_carry)}
+    if mc is not None:
+        state["obs"] = mc[0]
     res = MTLResult("admm", state["W"], rt.comm,
                     extras={"lam": lam, "rho": rho, "sv_engine": sv.mode})
     stamp_sgd(res, sgd)
     res.record(0, state["W"])
     # the consensus variable Z is the estimator
     state = rt.run_rounds(rounds, body, state, sharded=("W",), scan=scan,
-                          record=iterate_recorder(res, record_every, key="Z"),
+                          record=compose_records(iterate_recorder(
+                              res, record_every, key="Z"), mc),
                           data_leaves=_round_leaves(prob, sgd))
     res.W = state["Z"]
-    return _finish(res, sv, state, keep_sv_carry)
+    return _finish(res, sv, state, keep_sv_carry, rt, mc)
 
 
 @register("dfw")
@@ -315,9 +344,9 @@ def dfw(prob: MTLProblem, radius: float = None, rounds: int = 200,
     the leading singular pair of the gradient (:func:`leading_sv`, with
     ``sv_iters`` as its worst-case budget)."""
     rt = default_runtime(prob, runtime)
-    refuse_metrics(metrics)
     if radius is None:
         radius = prob.nuclear_radius
+    mc = metrics_channel(metrics, prob)
 
     def body(k, state, data):
         W = state["W"]
@@ -326,14 +355,23 @@ def dfw(prob: MTLProblem, radius: float = None, rounds: int = 200,
         gamma = 2.0 / (k + 2.0)
         # w_j <- (1-gamma) w_j - gamma R v_j u  (B.1)
         W_new = (1.0 - gamma) * W - gamma * radius * torch.outer(u, v)
-        return {"W": rt.broadcast(W_new, "v_j * u direction")}
+        out = {"W": rt.broadcast(W_new, "v_j * u direction")}
+        if metrics:
+            # constraint form: no regularizer term, no shrink engine
+            out["obs"] = obs_round(W, W_new, grad=G)
+        return out
 
     state = {"W": torch.zeros((prob.p, prob.m), dtype=prob.Xs.dtype,
                               device=prob.device)}
+    if mc is not None:
+        state["obs"] = mc[0]
     res = MTLResult("dfw", state["W"], rt.comm, extras={"radius": radius})
     res.record(0, state["W"])
     state = rt.run_rounds(rounds, body, state, scan=scan,
-                          record=iterate_recorder(res, record_every),
+                          record=compose_records(
+                              iterate_recorder(res, record_every), mc),
                           data_leaves=gram_round_leaves(prob))
     res.W = state["W"]
+    if mc is not None:
+        res.extras["metrics"] = mc[2].finalize(rt)
     return res

@@ -27,9 +27,11 @@ import torch
 from .. import prng, worker_ops
 from ..spectral import leading_sv
 from ..svd_ops import gram_schmidt_append
-from .base import (MTLProblem, MTLResult, default_runtime, gram_round_leaves,
-                   iterate_recorder, refuse_metrics, register, stamp_sgd,
-                   stochastic_config, stochastic_round_leaves)
+from ...obs.device import obs_round
+from .base import (MTLProblem, MTLResult, compose_records, default_runtime,
+                   gram_round_leaves, iterate_recorder, metrics_channel,
+                   register, stamp_sgd, stochastic_config,
+                   stochastic_round_leaves)
 
 
 def _subspace_pursuit(prob: MTLProblem, rounds: int, direction: str,
@@ -39,12 +41,12 @@ def _subspace_pursuit(prob: MTLProblem, rounds: int, direction: str,
                       local_steps: int = None, batch_seed: int = 0,
                       metrics: bool = False) -> MTLResult:
     rt = default_runtime(prob, runtime)
-    refuse_metrics(metrics)
     m, p = prob.m, prob.p
     loss = prob.loss
     max_k = rounds
     name = "dgsp" if direction == "gradient" else "dnsp"
     sgd = stochastic_config(prob, batch_size, local_steps, rt.data_shards)
+    mc = metrics_channel(metrics, prob)
 
     def messages(W_local, data, k):
         if sgd is not None:
@@ -106,6 +108,12 @@ def _subspace_pursuit(prob: MTLProblem, rounds: int, direction: str,
         out = {"U": U, "mask": mask, "W": W_local}
         if sgd is not None:
             out["V"] = V
+        if metrics:
+            # W is worker-sharded here; the replicated master quantities
+            # are the gathered message matrix and the masked basis, so
+            # step_norm reports the appended column's growth
+            out["obs"] = obs_round(state["U"] * state["mask"][None, :],
+                                   Um, grad=G)
         return out
 
     dt, dev = prob.Xs.dtype, prob.device
@@ -117,14 +125,19 @@ def _subspace_pursuit(prob: MTLProblem, rounds: int, direction: str,
         # the codes are worker state like W: (max_k, m) task columns
         state["V"] = torch.zeros((max_k, m), dtype=dt, device=dev)
         sharded = ("W", "V")
+    if mc is not None:
+        state["obs"] = mc[0]
     res = MTLResult(name, state["W"], rt.comm)
     stamp_sgd(res, sgd)
     res.record(0, state["W"])
     state = rt.run_rounds(rounds, body, state, sharded=sharded, scan=scan,
-                          record=iterate_recorder(res, record_every),
+                          record=compose_records(
+                              iterate_recorder(res, record_every), mc),
                           data_leaves=gram_round_leaves(prob) if sgd is None
                           else stochastic_round_leaves(prob))
     res.W = state["W"]
+    if mc is not None:
+        res.extras["metrics"] = mc[2].finalize(rt)
     res.extras["U"] = state["U"]
     res.extras["mask"] = state["mask"]
     return res
@@ -173,7 +186,6 @@ def altmin(prob: MTLProblem, rank: int = None, rounds: int = 30,
     :mod:`repro_torch.core.prng`.
     """
     rt = default_runtime(prob, runtime)
-    refuse_metrics(metrics)
     m, p = prob.m, prob.p
     r = int(rank if rank is not None else prob.r)
     loss = prob.loss
@@ -225,15 +237,26 @@ def altmin(prob: MTLProblem, rank: int = None, rounds: int = 30,
                 U_new = U_new - (G @ V_full.T) / m
         U_new = rt.broadcast(U_new, "updated U", vectors=r, dim=p)
         V2 = v_of(U_new, data)
-        return {"U": U_new, "W": U_new @ V2}
+        out = {"U": U_new, "W": U_new @ V2}
+        if metrics:
+            # W is worker-sharded; the replicated factor U is the
+            # master-visible iterate
+            out["obs"] = obs_round(U, U_new)
+        return out
 
+    mc = metrics_channel(metrics, prob)
     state = {"U": U0, "W": torch.zeros((p, m), dtype=prob.Xs.dtype,
                                        device=prob.device)}
+    if mc is not None:
+        state["obs"] = mc[0]
     res = MTLResult("altmin", state["W"], rt.comm)
     res.record(0, state["W"])
     state = rt.run_rounds(rounds, body, state, sharded=("W",), scan=scan,
-                          record=iterate_recorder(res, record_every),
+                          record=compose_records(
+                              iterate_recorder(res, record_every), mc),
                           data_leaves=gram_round_leaves(prob))
     res.W = state["W"]
     res.extras["U"] = state["U"]
+    if mc is not None:
+        res.extras["metrics"] = mc[2].finalize(rt)
     return res

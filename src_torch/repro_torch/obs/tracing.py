@@ -1,4 +1,4 @@
-"""Host span tracing: where a serve run spends its wall clock.
+"""Host span tracing: where a solve or serve run spends its wall clock.
 
 The port's own copy of ``repro.obs.tracing``.  A :class:`Tracer` keeps
 a bounded in-memory ring of events and, optionally, streams them to a
@@ -26,12 +26,13 @@ from typing import Any, Dict, Iterator, List, Optional
 
 __all__ = [
     "Tracer", "trace_span", "emit_event", "default_tracer", "configure",
-    "export_chrome_trace", "profiler_session", "EVENTS_JSONL",
-    "TORCH_TRACE_JSON",
+    "export_chrome_trace", "read_events_jsonl", "profiler_session",
+    "EVENTS_JSONL", "TRACE_JSON", "TORCH_TRACE_JSON",
 ]
 
 EVENTS_JSONL = "OBS_events.jsonl"
-TORCH_TRACE_JSON = "OBS_torch_trace.json"
+TRACE_JSON = "OBS_trace.json"              # the host spans, Chrome format
+TORCH_TRACE_JSON = "OBS_torch_trace.json"  # torch.profiler's timeline
 
 # environment hook: set REPRO_OBS_DIR to stream the default tracer's
 # events without touching call sites (the reference reads the same name)
@@ -155,6 +156,17 @@ def export_chrome_trace(events: List[Dict[str, Any]], path: str) -> str:
         json.dump({"traceEvents": out, "displayTimeUnit": "ms"}, f)
     os.replace(tmp, path)
     return path
+
+
+def read_events_jsonl(path: str) -> List[Dict[str, Any]]:
+    """Parse an ``OBS_events.jsonl`` file back into event dicts."""
+    events = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                events.append(json.loads(line))
+    return events
 
 
 @contextlib.contextmanager

@@ -35,7 +35,9 @@ for every layout; data-axis floats are measured into
 Accounting keeps the reference's model.  The primitives record their
 charges while the FIRST round runs; that template is replayed into the
 :class:`~repro_torch.core.comm.CommLog` once per round, so the ledger
-equals the reference's by construction.  Torch has no ``lax.scan``:
+equals the reference's by construction (a resumed solve records the
+template in the first round it runs and checks it against the stored
+one, ``runtime.recovery``).  Torch has no ``lax.scan``:
 every round runs the body eagerly, so the driver also checks that each
 later round charges exactly the template, and raises if one does not.
 ``scan=True`` and ``scan=False`` run the same loop (the argument stays
@@ -137,6 +139,10 @@ class ProtocolRuntime:
         self._round_data_events: List[_DataEvent] = []
         self._data_leaves: Optional[Tuple[str, ...]] = None
         self._used = False
+        # when set (``runtime.recovery.SolveCheckpointer``, attached by
+        # ``repro_torch.solve(..., ckpt_dir=)``), run_rounds hands its
+        # whole drive to the segmented, resumable driver
+        self._ckpt = None
 
     # ------------------------------------------------------------------
     # topology
@@ -358,9 +364,11 @@ class ProtocolRuntime:
                 "(or let repro_torch.solve build one) per call")
         self._used = True
 
-    def _run_body(self, body: RoundBody, k: int, state, data):
-        """Run one round and return its state; the first round's charges
-        become the template, every later round must repeat them."""
+    def _run_body(self, body: RoundBody, k: int, state, data,
+                  first: bool):
+        """Run round ``k`` and return its state; the charges of the
+        ``first`` round this driver runs become the template, every
+        later round must repeat them."""
         self._round_events = []
         self._round_data_events = []
         self._recording = True
@@ -368,14 +376,14 @@ class ProtocolRuntime:
             state = self._call_body(body, k, state, data)
         finally:
             self._recording = False
-        if k == 0:
+        if first:
             self._template = self._round_events
             self._data_template = self._round_data_events
         elif (self._round_events != self._template
               or self._round_data_events != self._data_template):
             raise RuntimeError(
                 f"round {k} charged {self._round_events} and "
-                f"{self._round_data_events} but round 0 charged "
+                f"{self._round_data_events} but the first round charged "
                 f"{self._template} and {self._data_template}: every round "
                 f"of a protocol must run the same collectives, or the "
                 f"replayed ledger would be wrong")
@@ -400,7 +408,9 @@ class ProtocolRuntime:
         replayed into ``self.comm`` after every round (see the module
         docstring).  ``record`` snapshots state entries on their
         cadences.  ``scan`` is accepted for parity with the reference
-        and changes nothing.
+        and changes nothing.  With a checkpointer attached (``_ckpt``)
+        the same rounds run in segments whose carry is persisted
+        (:meth:`~repro_torch.runtime.recovery.SolveCheckpointer.drive`).
         """
         self._claim()
         self._template = []
@@ -409,11 +419,14 @@ class ProtocolRuntime:
             tuple(data_leaves)
         sharded = tuple(sharded)
         records = self._as_records(record)
+        if self._ckpt is not None:
+            return self._ckpt.drive(self, rounds, body, state, sharded,
+                                    records, count_rounds)
         data = self._round_data()
         state = self._local_state(state, sharded)
         snap_sets = [set(r.snap_rounds(rounds)) for r in records]
         for t in range(rounds):
-            state = self._run_body(body, t, state, data)
+            state = self._run_body(body, t, state, data, first=t == 0)
             self._replay_round(count_rounds)
             for r, sset in zip(records, snap_sets):
                 if t in sset:

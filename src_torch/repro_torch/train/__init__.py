@@ -1,1 +1,2 @@
-"""Training-side infrastructure: the npz checkpoint / model-store format."""
+"""Training-side infrastructure: the npz checkpoint / model-store format
+(:mod:`.checkpoint`) and the streaming re-solver (:mod:`.streaming`)."""

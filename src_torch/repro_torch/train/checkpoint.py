@@ -11,7 +11,9 @@ for byte in what matters, so each package loads the other's stores:
 * writes are atomic: ``np.savez`` into a ``*.tmp`` file in the store,
   then ``os.replace`` onto ``step_XXXXXXXX.npz``, so a crash leaves a
   tmp file and never a truncated step; ``available_steps`` ignores tmp
-  files.
+  files;
+* the fault hook (``_fault_hook``, armed only by :mod:`repro_torch.faults`)
+  fires ``"pre_rename"`` between the write and the rename.
 
 Loaded arrays come back as CPU tensors; callers move them where they
 serve.  A corrupt or truncated step raises
@@ -25,7 +27,7 @@ import os
 import re
 import tempfile
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +35,17 @@ import torch
 # sha256 hex digest of the checkpoint's arrays, stored as one more npz
 # entry — excluded from the returned state and from its own digest
 HASH_KEY = "__checkpoint_hash__"
+
+# Test-only injection point (``repro_torch.faults``): when set, called as
+# ``hook(event, **info)`` at named crash sites ("pre_rename" fires
+# between the npz write and the atomic rename; the solve driver fires
+# "segment_saved" after a segment's store write).  None in production.
+_fault_hook: Optional[Callable[..., None]] = None
+
+
+def _fire(event: str, **info) -> None:
+    if _fault_hook is not None:
+        _fault_hook(event, **info)
 
 
 class CheckpointError(Exception):
@@ -130,6 +143,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     with os.fdopen(fd, "wb") as f:
         np.savez(f, **flat)
+    _fire("pre_rename", step=step, path=path, tmp=tmp)
     os.replace(tmp, path)
     if keep is not None:
         _gc(ckpt_dir, keep)

@@ -11,7 +11,9 @@ file.  The tests hold those results to the reference, which runs in the
 pytest process.
 
 Layouts: ``"1d"`` is a 4x1 ``("tasks",)`` mesh, ``"2d"`` a 2x2
-``("tasks", "data")`` mesh.  ``cluster`` starts two processes that join
+``("tasks", "data")`` mesh.  Each also runs the recovery matrix
+(:data:`RECOVERY`): checkpointed and resumed mesh solves, their solve
+stores beside the world's ``file://`` store.  ``cluster`` starts two processes that join
 over TCP through ``init_cluster``, on a port the OS assigned, the worker
 before its coordinator.
 
@@ -86,6 +88,15 @@ SGD_KW = dict(batch_size=4, local_steps=2, batch_seed=0)
 # p=16 leaves singular: the two packages' starts differ by ~8e-2 there,
 # so these are also run from W = 0 to be held to the reference
 INIT_LOCAL = ("accproxgd", "proxgd")
+
+# the recovery matrix (tests/test_recovery.py): the reference's solve,
+# checkpointed every 4 of its 11 rounds, on the harness's problem
+# (``repro_torch.faults.demo_problem``), full batch and stochastic
+RECOVERY = {"full": dict(method="proxgd", lam=0.05, rounds=11,
+                         record_every=3),
+            "sgd": dict(method="proxgd", lam=0.05, rounds=11, record_every=3,
+                        batch_size=8, local_steps=2, batch_seed=0)}
+RECOVERY_EVERY = 4
 
 # the sharded code table (tests/test_serve_mtl.py): p, r, requests, wave
 SERVE = dict(p=48, r=4, requests=50, wave=16)
@@ -257,6 +268,50 @@ def _sim_record(solve, prob, **kw):
     return _record(solve(prob, device="cpu", **kw), mesh=False)
 
 
+def _recovery_record(res) -> dict:
+    """A record with every iterate, for the bitwise recovery checks."""
+    import torch
+    return dict(_record(res, mesh=False),
+                iterates=torch.stack([w.clone() for w in res.iterates]))
+
+
+def _recovery(mesh, out, store: str, data_shards: int = 1) -> None:
+    """Each RECOVERY solve on the mesh: uninterrupted, checkpointed, and
+    resumed from its first segment after rank 0 deleted the later ones;
+    and the port's sim on the same solve (rank 0)."""
+    import warnings
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.faults import demo_problem
+    from repro_torch.train import checkpoint as ck
+    prob = demo_problem("cpu")
+    out["recovery"] = {}
+    for tag, kw in RECOVERY.items():
+        on = dict(backend="mesh", mesh=mesh, device="cpu", **kw)
+        base = repro_torch.solve(prob, **on)
+        d = f"{store}.recovery.{tag}"
+        seg = repro_torch.solve(prob, checkpoint_every=RECOVERY_EVERY,
+                                ckpt_dir=d, **on)
+        steps = ck.available_steps(d)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            for s in steps[1:]:
+                os.remove(os.path.join(d, f"step_{s:08d}.npz"))
+        dist.barrier()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the rollback warning
+            res = repro_torch.resume(d, mesh=mesh, device="cpu")
+        sim = None
+        if dist.get_rank() == 0:
+            sim = _recovery_record(repro_torch.solve(
+                prob, data_shards=data_shards, device="cpu", **kw))
+        out["recovery"][tag] = {
+            "base": _recovery_record(base), "seg": _recovery_record(seg),
+            "res": _recovery_record(res), "sim": sim, "steps": steps,
+            "checkpoint": res.extras["checkpoint"],
+            "agree": _agree(res.W)}
+
+
 def _refusal(fn) -> str:
     """The message of the ValueError ``fn`` raises ('' if none)."""
     try:
@@ -366,7 +421,7 @@ def _timeouts(mesh) -> dict:
             for name in mesh.mesh_dim_names}
 
 
-def _cases_1d(out):
+def _cases_1d(out, store):
     import repro_torch
     from repro_torch.runtime import task_data_mesh, task_mesh
     mesh = task_mesh(device="cpu")
@@ -376,6 +431,7 @@ def _cases_1d(out):
     _stochastic(repro_torch.solve, mesh, out)
     _shims(mesh, out)
     _sharded_tables(mesh, out)
+    _recovery(mesh, out, store)
     X, y, _ = arrays("sq")
     from repro_torch.core.methods import MTLProblem
     six = MTLProblem.make(X[:6], y[:6], "squared", device="cpu")
@@ -389,7 +445,7 @@ def _cases_1d(out):
     }
 
 
-def _cases_2d(out):
+def _cases_2d(out, store):
     import repro_torch
     from repro_torch.core.methods import MTLProblem
     from repro_torch.runtime import task_data_mesh
@@ -398,6 +454,7 @@ def _cases_2d(out):
     out["degen"], out["sgd"], out["sgd_zeros"] = {}, {}, {}
     _full_matrix(repro_torch.solve, mesh, out, data_shards=2)
     _stochastic(repro_torch.solve, mesh, out, data_shards=2)
+    _recovery(mesh, out, store, data_shards=2)
     # the data-axis payloads by the reference's rule: the one Gram-cache
     # all-reduce for gram solvers, one (p, L) pmean a round for raw ProxGD
     out["analytic"] = {
@@ -438,6 +495,8 @@ def _rank_world(layout: str, rank: int, store: str, out_path: str) -> None:
     # every module the cases run, imported before the rendezvous
     import repro_torch.core.distributed  # noqa: F401
     import repro_torch.core.methods  # noqa: F401
+    import repro_torch.faults  # noqa: F401
+    import repro_torch.runtime.recovery  # noqa: F401
     import repro_torch.serve.mtl  # noqa: F401
     from repro_torch.runtime import init_cluster
     _all_ready(store, rank)
@@ -445,7 +504,7 @@ def _rank_world(layout: str, rank: int, store: str, out_path: str) -> None:
                  timeout_s=TIMEOUT_S)
     try:
         out = {"layout": layout}
-        (_cases_1d if layout == "1d" else _cases_2d)(out)
+        (_cases_1d if layout == "1d" else _cases_2d)(out, store)
         if rank == 0:
             torch.save(out, out_path)
     finally:

@@ -124,6 +124,50 @@ def test_the_mesh_path_leaves_jax_unloaded(tmp_path):
     assert proc.stdout.strip() == "clean"
 
 
+def test_the_recovery_metrics_and_streaming_path_leaves_jax_unloaded(
+        tmp_path):
+    """The recovery, fault-harness, device-metrics and streaming modules
+    import, and a checkpointed solve with metrics, its resume and one
+    streaming refresh published to a server run, without JAX or the
+    reference."""
+    code = (
+        "import os, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
+        "import repro_torch.runtime.recovery, repro_torch.faults\n"
+        "import repro_torch.obs.device, repro_torch.obs.__main__\n"
+        "import repro_torch.train.streaming\n"
+        "from repro_torch import resume, solve\n"
+        "from repro_torch.faults import demo_problem\n"
+        "from repro_torch.serve.mtl import MTLServer\n"
+        "from repro_torch.train.streaming import (SampleStream,\n"
+        "                                         StreamingResolver)\n"
+        f"d = {str(tmp_path)!r}\n"
+        "prob = demo_problem('cpu')\n"
+        "res = solve(prob, method='proxgd', rounds=5, lam=0.05,\n"
+        "            metrics=True, checkpoint_every=2,\n"
+        "            ckpt_dir=os.path.join(d, 'ckpt'), device='cpu')\n"
+        "again = resume(os.path.join(d, 'ckpt'), device='cpu')\n"
+        "assert (again.W == res.W).all()\n"
+        "assert res.extras['metrics']['round'].tolist() == [1, 2, 3, 4, 5]\n"
+        "store = os.path.join(d, 'models')\n"
+        "model = res.factorize(3)\n"
+        "model.save(store)\n"
+        "server = MTLServer(model)\n"
+        "stream = SampleStream(res.W, prob.gram_A.mean(0), device='cpu')\n"
+        "rep = StreamingResolver(prob, server, store, rounds=2,\n"
+        "                        batch_size=8, solver_hp={'lam': 0.05}\n"
+        "                        ).step(stream, 4)\n"
+        "assert rep['reloaded'] and rep['store_step'] == 1\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
 def test_the_lm_serving_path_leaves_jax_unloaded():
     """The slice-4 modules import, and a seeded model serves a wave on
     the CPU, without JAX or the reference."""

@@ -249,3 +249,36 @@ def test_mesh2d_refusals_are_the_references(world):
 
 def test_mesh2d_groups_time_out_as_init_cluster_set(world):
     assert world["timeouts"] == {"tasks": mw.TIMEOUT_S, "data": mw.TIMEOUT_S}
+
+
+# ---------------------------------------------------------------------------
+# recovery on the mesh (tests/test_recovery.py's mesh matrix)
+# ---------------------------------------------------------------------------
+def _same_solve(a, b, counters=True):
+    assert torch.equal(a["W"], b["W"])
+    assert torch.equal(a["iterates"], b["iterates"])
+    assert a["ledger"] == b["ledger"] and a["rounds_axis"] == b["rounds_axis"]
+    if counters:
+        assert (a["coll"], a["dcoll"]) == (b["coll"], b["dcoll"])
+
+
+@pytest.mark.parametrize("tag", sorted(mw.RECOVERY))
+def test_mesh_2d_recovery_and_resumed_bitidentical(world, tag):
+    """Checkpointed every 4 rounds, and resumed from the first segment
+    after the later ones were deleted, the mesh solve equals the
+    uninterrupted mesh solve bitwise (W, iterates, ledger, both
+    collective-float counters) and the port's sim bitwise; the resumed W
+    is within the solver bound of the reference's uninterrupted solve,
+    with its ledger."""
+    row = world["recovery"][tag]
+    _same_solve(row["base"], row["seg"])
+    _same_solve(row["base"], row["res"])
+    _same_solve(row["base"], row["sim"], counters=False)
+    assert row["steps"] == [4, 8, 11] and row["agree"]
+    assert row["checkpoint"]["resumed_from"] == mw.RECOVERY_EVERY
+    assert row["checkpoint"]["rolled_back_from"] == 11
+    assert row["base"]["coll"] > 0
+    from repro.faults import demo_problem as ref_problem
+    rj = repro.solve(ref_problem(), data_shards=D, **mw.RECOVERY[tag])
+    _close(row["res"]["W"], rj.W)
+    assert row["res"]["ledger"] == rj.comm.ledger()

@@ -161,10 +161,24 @@ def test_registry_and_what_is_not_ported(tmp_path):
     _assert_same_solve(rj, rt)
     assert rt.extras["data_shards"] == 2
     assert rt.extras["data_collective_floats_per_chip"] == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        repro_torch.solve(tp, method="proxgd", ckpt_dir="unused", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        repro_torch.solve(tp, method="dgsp", metrics=True, device="cpu")
+    # recovery: a checkpointed solve writes its store and equals the
+    # plain solve bitwise
+    store = tmp_path / "ckpt"
+    seg = repro_torch.solve(tp, ckpt_dir=str(store), checkpoint_every=3,
+                            **kw)
+    assert torch.equal(seg.W, sim.W)
+    assert seg.comm.ledger() == sim.comm.ledger()
+    assert sorted(p.name for p in store.iterdir()) == [
+        "MANIFEST.json", "problem.npz", "step_00000003.npz",
+        "step_00000004.npz"]
+    assert seg.extras["checkpoint"]["segments_run"] == 2
+    # device round metrics: per-round arrays in extras["metrics"]
+    bare = repro_torch.solve(tp, method="dgsp", rounds=4, device="cpu")
+    inst = repro_torch.solve(tp, method="dgsp", rounds=4, metrics=True,
+                             device="cpu")
+    assert torch.equal(inst.W, bare.W)
+    assert inst.extras["metrics"]["round"].tolist() == [1, 2, 3, 4]
+    assert inst.extras["metrics"]["grad_norm"].shape == (4,)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         repro_torch.solve(tp, method="dgsp", verify="static", device="cpu")
     with pytest.raises(ValueError, match="full-batch only"):
