@@ -78,6 +78,18 @@ raises and the script exits non-zero:
    published to a live ``MTLServer`` whose wave of 256 scores is held to
    ``X W_r`` of the new model, with the store step, the swap log and
    the staleness gauges;
+9d. the static checks and the Fig-4 surrogates: ``solve(...,
+   verify="static")`` on path B's DGSP, path D's stochastic ProxGD, the
+   same on a 1-rank NCCL mesh and at four data shards through the sim's
+   2-D emulation, each "ok" with W, ledger and the real solve's kernel
+   launches bitwise an unverified solve's (the twin's launches counted
+   apart), and a runtime whose gather also moves an uncharged
+   all-reduce on the mesh refused with COMM001; the six App. H
+   surrogates drawn on the card from ``PRNGKey(300 + i)`` as
+   ``benchmarks/fig4_real.py`` draws them, held to the port's CPU draws
+   (labels equal but at near-ties), every fig4 method on each with the
+   App. H claim (the best sharing method within 1.02 x ``local``'s test
+   error), and DGSP and ProxGD on school and landmine card vs CPU;
 10. the LM serving path of gemma2-2b at full width: (a) the
    ``flash_attention`` kernels against their plain version at the served
    shapes (prefill B=4 S=5120 global and with the 4096 window binding,
@@ -133,7 +145,7 @@ raises and the script exits non-zero:
    decode times, and a ``torch.profiler`` window over one wave.
 
 Phase 3 also checks the seeded sampler on the card against the CPU,
-bit for bit, and times a draw.  Phases 4, 6-9c and the served waves and
+bit for bit, and times a draw.  Phases 4, 6-9d and the served waves and
 f32 anchors of 10 and 11 each set the launch counters to 0 just before
 they run and read them just after.  It prints a ``{"kernels": [...]}`` line and,
 last, the contract line ``{"ok": true, "device": {...}}``.  Without a
@@ -1595,6 +1607,241 @@ def recovery_phase(grad_ops, prox_ops, score_ops, a_data, d_data,
     log(f"[recovery] phase 9c in {out['phase_s']:.1f} s (target "
         f"{REC_TARGET_S:.0f} s); launches in this process "
         f"{out['launches']}, in its children {child}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9d, the static checks on the card and the Fig-4 surrogates
+# ---------------------------------------------------------------------------
+# benchmarks/fig4_real.py's METHODS (that script imports JAX, so its list
+# is copied here), each spec drawn from PRNGKey(300 + i) as it draws them
+FIG4_METHODS = (
+    ("local", {"l2": 1e-2}),
+    ("centralize", {"lam": 0.02}),
+    ("proxgd", {"lam": 0.02, "rounds": 60, "record_every": 2}),
+    ("accproxgd", {"lam": 0.02, "rounds": 60, "record_every": 2}),
+    ("admm", {"lam": 0.02, "rho": 0.5, "rounds": 60, "record_every": 2}),
+    ("dfw", {"rounds": 60, "record_every": 2}),
+    ("dgsp", {"rounds": 8, "l2": 1e-2}),
+    ("dnsp", {"rounds": 8, "damping": 0.5, "l2": 1e-2}),
+    ("altmin", {"rounds": 10}),
+)
+FIG4_KEY0 = 300
+FIG4_SLACK = 1.02                # App. H: best sharing <= 1.02 x local
+# the card's surrogate draws against the port's CPU draws, of the
+# largest magnitude (the same threefry integers; f32 sums in another
+# order); a label may differ only where its coin lies this near
+# sigmoid(margin)
+SURROGATE_RTOL = 1e-5
+SURROGATE_TIE = 1e-5
+# one regression and one classification surrogate solved on the card
+# and on the CPU from the same arrays, with the solver bound
+SURROGATE_CPU = ("school", "landmine")
+SURROGATE_CPU_METHODS = ("dgsp", "proxgd")
+VERIFY_TARGET_S = 60.0           # the phase's time budget (reported)
+
+
+def verify_phase(grad_ops, prox_ops, d_data, dev="cuda"):
+    """Phase 9d: (a) ``solve(..., verify="static")`` on path B's DGSP,
+    path D's stochastic ProxGD, the same on a 1-rank NCCL mesh and at
+    D=4 through the sim's 2-D emulation, each "ok" with W, ledger and
+    kernel launches of the real solve bitwise an unverified solve's, and
+    a runtime that moves one uncharged all-reduce on the mesh refused
+    with COMM001; (b) the six Fig-4 surrogates at their App. H shapes,
+    the card's draws against the CPU's, every fig4 method on the card
+    with the App. H claim per dataset, and two surrogates' W card vs
+    CPU."""
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.analysis import AnalysisError, verify_static
+    from repro_torch.core import prng
+    from repro_torch.core.methods import MTLProblem
+    from repro_torch.data import realworld as rw
+    from repro_torch.runtime import MeshRuntime, init_cluster, task_mesh
+    t_phase = time.perf_counter()
+    out = {"verify": {}, "surrogates": {}}
+    grad_ops.task_gradients.launches = 0       # count this phase only
+    prox_ops.prox_step.launches = 0
+
+    def verified(label, prob, kernel, method, **kw):
+        """The twin alone, an unverified solve and a verified one: the
+        verified solve's launches are the twin's plus the unverified
+        solve's, its W and ledger the unverified solve's bitwise."""
+        runs = {}
+        for name, call in (
+                ("twin", lambda: verify_static(prob, method, **kw)),
+                ("plain", lambda: repro_torch.solve(prob, method=method,
+                                                    **kw)),
+                ("verified", lambda: repro_torch.solve(
+                    prob, method=method, verify="static", **kw))):
+            n0 = kernel.launches
+            t0 = time.perf_counter()
+            res = call()
+            _sync(dev)
+            runs[name] = (res, kernel.launches - n0,
+                          time.perf_counter() - t0)
+        (rep, n_twin, t_twin), (plain, n_plain, t_plain), \
+            (ver, n_ver, t_ver) = runs["twin"], runs["plain"], runs["verified"]
+        check(rep.ok and ver.extras["static_verify"] == "ok" and
+              torch.equal(ver.W, plain.W) and
+              ver.comm.ledger() == plain.comm.ledger() and n_twin > 0 and
+              n_ver - n_twin == n_plain > 0,
+              f"verify {label}: W, ledger or launches differ from the "
+              f"unverified solve's (twin {n_twin}, verified {n_ver}, "
+              f"unverified {n_plain})")
+        log(f"[verify] {label}: ok; a twin of {rep.rounds} rounds, "
+            f"{rep.collective_eqns} c10d op(s) a round, "
+            f"{rep.measured_task_floats_per_chip} tasks-axis floats "
+            f"moved, {rep.charged_floats_per_machine} charged per machine; "
+            f"W and ledger bitwise the unverified solve's; "
+            f"{kernel.__name__} launches twin {n_twin} + solve "
+            f"{n_ver - n_twin} (unverified {n_plain}); twin {t_twin:.3f} s, "
+            f"solve {t_plain:.3f} s, verified solve {t_ver:.3f} s")
+        return {"twin_rounds": rep.rounds, "c10d_ops_a_round":
+                rep.collective_eqns,
+                "measured_task_floats": rep.measured_task_floats_per_chip,
+                "charged_floats_per_machine": rep.charged_floats_per_machine,
+                "launches": {"twin": n_twin, "solve": n_ver - n_twin,
+                             "unverified": n_plain},
+                "seconds": {"twin": t_twin, "unverified": t_plain,
+                            "verified": t_ver}}
+
+    # (a) verify="static" on the card
+    Xb, yb, _, _ = sim_data(**FULL, seed=SEED, device=dev,
+                            task="classification")
+    prob_b = MTLProblem.make(Xb, yb, "logistic", A=2.0, r=FULL["r"],
+                             device=dev)
+    sq = d_data["probs"]["squared"]
+    sgd = dict(rounds=10, lam=0.01, batch_size=D_BATCH, local_steps=4,
+               batch_seed=0)
+    out["verify"]["B dgsp"] = verified("path B dgsp/logistic", prob_b,
+                                       grad_ops.task_gradients, "dgsp",
+                                       rounds=10)
+    out["verify"]["D proxgd"] = verified(
+        f"path D proxgd/squared B={D_BATCH} L=4", sq, prox_ops.prox_step,
+        "proxgd", **sgd)
+    out["verify"][f"D{MESH_D} proxgd"] = verified(
+        f"path D proxgd/squared B={D_BATCH} L=4 at D={MESH_D} (emulation)",
+        sq, prox_ops.prox_step, "proxgd", data_shards=MESH_D, **sgd)
+    store = tempfile.mkdtemp(prefix="verify_store_")
+    try:
+        init_cluster(f"file://{store}/store", 1, 0, device=dev,
+                     timeout_s=120)
+        mesh = task_mesh(device=dev)
+        out["verify"]["D proxgd mesh"] = verified(
+            f"path D proxgd/squared B={D_BATCH} L=4 on the 1-rank "
+            f"{dist.get_backend()} mesh", sq, prox_ops.prox_step, "proxgd",
+            backend="mesh", mesh=mesh, **sgd)
+        real = MeshRuntime.gather_columns
+
+        def rogue(self, x, note=""):
+            s = x.sum(dim=0)
+            dist.all_reduce(s, group=self._tasks_group)   # never charged
+            return real(self, x, note)
+
+        MeshRuntime.gather_columns = rogue
+        refused = ""
+        try:
+            repro_torch.solve(sq, method="proxgd", backend="mesh",
+                              mesh=mesh, verify="static", **sgd)
+        except AnalysisError as e:
+            refused = str(e)
+        finally:
+            MeshRuntime.gather_columns = real
+        first = next((ln.strip() for ln in refused.splitlines()
+                      if "COMM001" in ln), "")
+        check("c10d.allreduce_" in first and "'tasks'" in first,
+              f"a runtime moving an uncharged all-reduce was not refused "
+              f"with COMM001: {refused!r}")
+        out["verify"]["uncharged all_reduce"] = first
+        log(f"[verify] a gather that also moves an uncharged all-reduce on "
+            f"the mesh is refused: {first}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # (b) the Fig-4 surrogates at their App. H shapes
+    for i, (name, spec) in enumerate(rw.REAL_SPECS.items()):
+        t0 = time.perf_counter()
+        key = prng.PRNGKey(FIG4_KEY0 + i, device=dev)
+        card = rw.generate_surrogate(key, spec, device=dev)
+        _sync(dev)
+        t_draw = time.perf_counter() - t0
+        host = rw.generate_surrogate(prng.PRNGKey(FIG4_KEY0 + i,
+                                                  device="cpu"), spec,
+                                     device="cpu")
+        errs, flips = [], 0
+        for j, (a, b) in enumerate(zip(card, host)):
+            a = a.cpu()
+            if spec.task == "classification" and j % 2:
+                # labels: equal but where the coin is a near-tie
+                u = prng.uniform(rw.surrogate_keys(key)[4 + 2 * (j // 2)],
+                                 tuple(a.shape))
+                pr = torch.sigmoid(torch.einsum(
+                    "mnp,pm->mn", card[j - 1], rw.surrogate_predictor(
+                        key, spec)))
+                gap = (u - pr).abs().cpu()[a != b]
+                flips += int(gap.numel())
+                check(bool((gap <= SURROGATE_TIE).all()),
+                      f"surrogate {name}: a label flipped away from a tie")
+                continue
+            errs.append(float((a - b).abs().max()) / float(b.abs().max()))
+        check(max(errs) <= SURROGATE_RTOL,
+              f"surrogate {name}: card draws differ from the CPU's by "
+              f"{max(errs)} of their scale")
+        Xs, ys, Xt, yt = card
+        loss = "squared" if spec.task == "regression" else "logistic"
+        prob = MTLProblem.make(Xs, ys, loss, A=3.0, r=spec.r, device=dev)
+        finals, t_solve = {}, time.perf_counter()
+        g0 = grad_ops.task_gradients.launches
+        for method, kw in FIG4_METHODS:
+            res = repro_torch.solve(prob, method=method, **kw)
+            finals[method] = min(float(rw.test_metric(spec.task, W, Xt, yt))
+                                 for W in (res.iterates or [res.W]))
+            if name in SURROGATE_CPU and method in SURROGATE_CPU_METHODS:
+                cpu = repro_torch.solve(MTLProblem.make(
+                    Xs.cpu(), ys.cpu(), loss, A=3.0, r=spec.r,
+                    device="cpu"), method=method, device="cpu", **kw)
+                err = float((res.W.cpu() - cpu.W).abs().max())
+                tol = SOLVER_W_RTOL * max(1.0, float(cpu.W.abs().max()))
+                check(err <= tol and res.comm.ledger() == cpu.comm.ledger(),
+                      f"surrogate {name} {method}: card W differs from the "
+                      f"CPU's by {err} > {tol}")
+                out["surrogates"].setdefault(name, {})[
+                    f"{method} card vs CPU"] = {"max_abs_err": err,
+                                                "tol": tol}
+                log(f"[fig4] {name} {method}: card vs CPU max|dW| "
+                    f"{err:.3e} (tol {tol:.3e}); ledgers equal")
+        t_solve = time.perf_counter() - t_solve
+        grad_n = grad_ops.task_gradients.launches - g0
+        best, best_name = min((v, k) for k, v in finals.items()
+                              if k != "local")
+        check(best <= FIG4_SLACK * finals["local"],
+              f"surrogate {name}: the best sharing method's test error "
+              f"{best} is above {FIG4_SLACK} x local's {finals['local']}")
+        check(loss == "squared" or grad_n > 0,
+              f"surrogate {name}: the logistic solves never launched "
+              f"mtl_grad")
+        out["surrogates"].setdefault(name, {}).update({
+            "test_error": finals, "draw_s": t_draw, "solve_s": t_solve,
+            "mtl_grad_launches": grad_n, "max_rel_draw_err": max(errs),
+            "label_flips": flips})
+        metric = "RMSE" if loss == "squared" else "1-AUC"
+        log(f"[fig4] {name} (surrogate) m={spec.m} p={spec.p} n={spec.n} "
+            f"{spec.task}: draw {t_draw * 1e3:.1f} ms on the card, vs CPU "
+            f"{max(errs):.2e} of scale, {flips} label flips; test {metric} "
+            f"(surrogate): local {finals['local']:.4f}, best sharing "
+            f"{best:.4f} ({best_name}); "
+            f"{len(FIG4_METHODS)} methods in {t_solve:.2f} s, {grad_n} "
+            f"mtl_grad launches")
+    out["launches"] = {"mtl_grad": grad_ops.task_gradients.launches,
+                       "prox_step": prox_ops.prox_step.launches}
+    check(all(v > 0 for v in out["launches"].values()),
+          f"phase 9d left a kernel unlaunched: {out['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[verify] phase 9d in {out['phase_s']:.1f} s (target "
+        f"{VERIFY_TARGET_S:.0f} s); launches {out['launches']}")
     return out
 
 
@@ -3432,12 +3679,16 @@ def main() -> int:
 
     # -- 9c. recovery, device metrics and the streaming re-solver ----------
     rec = recovery_phase(grad_ops, prox_ops, score_ops, a_data, d_data)
+
+    # -- 9d. the static checks and the Fig-4 surrogates ---------------------
+    vs = verify_phase(grad_ops, prox_ops, d_data)
     del d_data, a_data
     grad_launches = (a["launches"]["mtl_grad"] + b["launches"]["mtl_grad"]
                      + c["launches"]["mtl_grad"] + d["launches"]["mtl_grad"]
                      + mesh["launches"]["mtl_grad"]
                      + rec["launches"]["mtl_grad"]
-                     + rec["child_launches"]["mtl_grad"])
+                     + rec["child_launches"]["mtl_grad"]
+                     + vs["launches"]["mtl_grad"])
     check(a["launches"]["mtl_grad"] > 0 and b["launches"]["mtl_grad"] > 0,
           "the solver paths never launched mtl_grad")
 
@@ -3489,7 +3740,9 @@ def main() -> int:
                              "mesh": mesh["launches"]["mtl_grad"],
                              "recovery": rec["launches"]["mtl_grad"],
                              "recovery children":
-                                 rec["child_launches"]["mtl_grad"]},
+                                 rec["child_launches"]["mtl_grad"],
+                             "verify and surrogates":
+                                 vs["launches"]["mtl_grad"]},
         "max_abs_err": grad_err,
         "ms": grad_row["kernel_ms"],
         "kernel_ms": grad_row["kernel_ms"],
@@ -3510,12 +3763,15 @@ def main() -> int:
         "launches": (d["launches"]["prox_step"]
                      + mesh["launches"]["prox_step"]
                      + rec["launches"]["prox_step"]
-                     + rec["child_launches"]["prox_step"]),
+                     + rec["child_launches"]["prox_step"]
+                     + vs["launches"]["prox_step"]),
         "launches_by_path": {"solver D": d["launches"]["prox_step"],
                              "mesh": mesh["launches"]["prox_step"],
                              "recovery": rec["launches"]["prox_step"],
                              "recovery children":
-                                 rec["child_launches"]["prox_step"]},
+                                 rec["child_launches"]["prox_step"],
+                             "verify and surrogates":
+                                 vs["launches"]["prox_step"]},
         "max_abs_err": prox_err,
         "ms": prox_rows[0]["kernel_ms"],
         "kernel_ms": prox_rows[0]["kernel_ms"],
@@ -3612,7 +3868,7 @@ def main() -> int:
                   "profiled_device_busy_share": busy if kernels else None,
                   "profiled_kernel_us": kernels},
         "solver": {"A": a, "B": b, "C": c, "D": d}, "mesh": mesh,
-        "recovery": rec,
+        "recovery": rec, "verify": vs,
         "sampler": sampler,
         "lm": lm, "mamba": mamba}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

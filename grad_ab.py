@@ -5,7 +5,8 @@ solver paths' shapes, beside the library call that computes the same
 function.
 
     python3 grad_ab.py [--root DIR] [--tag NAME] [--sweep]
-                       [--solve [--save FILE] [--against FILE]]
+                       [--solve [--only TEXT] [--save FILE]
+                                [--against FILE]]
 
 ``--root`` is the root of the checkout whose ``src_torch/`` is timed
 (default: this script's own), so two versions compare in one machine:
@@ -21,12 +22,15 @@ at FULL2D logistic (and FULL's and path D's shapes) under forced plans
 (split, tile rows, stages), each held bitwise to the default plan's
 output where the split is the same.  ``--solve`` times instead whole
 solves on the simulated cluster, as ``chip_smoke.py`` runs them: path
-B's DGSP (FULL logistic, raw gradients through ``mtl_grad``) and path
-D's stochastic ProxGD (FULL2D squared raw, B=500, L=4, through
-``prox_step``), 10 rounds each, ``SOLVE_REPS`` solves after a warm-up,
-each solve's seconds a round and its launches; ``--save`` writes each
-W, ``--against`` prints each W's largest difference from another run's
-saved W.  The last line is one JSON object.  Without a card it exits 1.
+A's lazy ProxGD (FULLSP squared raw, 50 rounds, the lazy spectral
+master, raw gradients through ``mtl_grad``), path B's DGSP (FULL
+logistic, through ``mtl_grad``) and path D's stochastic ProxGD (FULL2D
+squared raw, B=500, L=4, through ``prox_step``), the last two 10 rounds
+each, ``SOLVE_REPS`` solves after a warm-up, each solve's seconds a
+round and its launches; ``--save`` writes each W, ``--against`` prints
+each W's largest difference from another run's saved W and whether the
+two are bitwise equal; ``--only`` keeps the solves whose name holds the
+text (e.g. ``"path A"``).  The last line is one JSON object.  Without a card it exits 1.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--solve", action="store_true")
+    ap.add_argument("--only", default="")
     ap.add_argument("--save", default="")
     ap.add_argument("--against", default="")
     args = ap.parse_args()
@@ -177,49 +182,74 @@ def solve_times(root, card, args) -> int:
     import repro_torch
     from repro_torch.core import prng
     from repro_torch.core.methods import MTLProblem
+    from repro_torch.core.methods.convex import data_smoothness
     from repro_torch.data.synthetic import SimSpec, generate
     from repro_torch.kernels.mtl_grad import ops as gops
     from repro_torch.kernels.prox_step import ops as pops
-    Xs, ys, _, _ = cs.sim_data(**cs.FULL, seed=cs.SEED, device="cuda",
-                               task="classification")
-    prob_b = MTLProblem.make(Xs, ys, "logistic", A=2.0, r=cs.FULL["r"])
-    sp = cs.FULL2D
-    Xd, yd, _, _ = generate(prng.PRNGKey(sp["key"]),
-                            SimSpec(p=sp["p"], m=sp["m"], r=sp["r"],
-                                    n=sp["n"], task="regression"),
-                            sample_chunks=sp["chunks"])
-    prob_d = MTLProblem.make(Xd, yd, "squared", gram=False, A=2.0, r=sp["r"])
-    cases = (("path B dgsp/logistic", prob_b, gops.task_gradients,
-              dict(method="dgsp")),
-             (f"path D proxgd/squared B={cs.D_BATCH} L=4", prob_d,
-              pops.prox_step, dict(method="proxgd", lam=0.01,
+    def path_a():
+        sa = cs.FULLSP
+        Xa, ya, _, _ = cs.sim_data(sa["p"], sa["m"], sa["r"], sa["n"],
+                                   cs.SEED, "cuda", noise=sa["noise"])
+        prob = MTLProblem.make(Xa, ya, "squared", gram=False, A=2.0,
+                               r=sa["r"])
+        return prob, sa["rounds"], dict(
+            method="proxgd", lam=sa["lam"], eta=1.0 / data_smoothness(prob),
+            init="zeros", sv_rank=sa["sv_rank"], sv_engine="lazy")
+
+    def path_b():
+        Xs, ys, _, _ = cs.sim_data(**cs.FULL, seed=cs.SEED, device="cuda",
+                                   task="classification")
+        return (MTLProblem.make(Xs, ys, "logistic", A=2.0, r=cs.FULL["r"]),
+                SOLVE_ROUNDS, dict(method="dgsp"))
+
+    def path_d():
+        sp = cs.FULL2D
+        Xd, yd, _, _ = generate(prng.PRNGKey(sp["key"]),
+                                SimSpec(p=sp["p"], m=sp["m"], r=sp["r"],
+                                        n=sp["n"], task="regression"),
+                                sample_chunks=sp["chunks"])
+        return (MTLProblem.make(Xd, yd, "squared", gram=False, A=2.0,
+                                r=sp["r"]),
+                SOLVE_ROUNDS, dict(method="proxgd", lam=0.01,
                                    batch_size=cs.D_BATCH, local_steps=4,
-                                   batch_seed=0)))
+                                   batch_seed=0))
+
+    cases = (("path A proxgd lazy/squared", gops.task_gradients, path_a),
+             ("path B dgsp/logistic", gops.task_gradients, path_b),
+             (f"path D proxgd/squared B={cs.D_BATCH} L=4", pops.prox_step,
+              path_d))
     other = torch.load(args.against) if args.against else {}
     rows, saved = [], {}
-    for name, prob, kernel, kw in cases:
+    for name, kernel, make in cases:
+        if args.only not in name:
+            continue
+        prob, rounds, kw = make()
         cs.timed_solve(repro_torch.solve, prob, rounds=1, **kw)
         per_round, launches, W = [], set(), None
         for _ in range(SOLVE_REPS):
             n0 = kernel.launches
             res, secs = cs.timed_solve(repro_torch.solve, prob,
-                                       rounds=SOLVE_ROUNDS, **kw)
+                                       rounds=rounds, **kw)
             launches.add(kernel.launches - n0)
             cs.check(W is None or torch.equal(res.W, W),
                      f"{name}: a repeated solve gave other bytes")
             W = res.W
-            per_round.append(secs / SOLVE_ROUNDS)
+            per_round.append(secs / rounds)
         saved[name] = W.cpu()
-        diff = (float((saved[name] - other[name]).abs().max())
-                if name in other else None)
-        rows.append({"solve": name, "round_s": per_round,
-                     "launches": sorted(launches), "max_abs_diff": diff})
+        diff = bitwise = None
+        if name in other:
+            diff = float((saved[name] - other[name]).abs().max())
+            bitwise = bool(torch.equal(saved[name], other[name]))
+        rows.append({"solve": name, "rounds": rounds, "round_s": per_round,
+                     "launches": sorted(launches), "max_abs_diff": diff,
+                     "bitwise_equal": bitwise})
         print(f"[solve] {args.tag} {name}: a round "
               f"{statistics.median(per_round) * 1e3:.3f} ms "
               f"({min(per_round) * 1e3:.3f}-{max(per_round) * 1e3:.3f}, "
-              f"{SOLVE_REPS} solves of {SOLVE_ROUNDS} rounds), "
+              f"{SOLVE_REPS} solves of {rounds} rounds), "
               f"{sorted(launches)} {kernel.__name__} launches a solve"
-              + ("" if diff is None else f", max|W - W_against| {diff:.3e}"),
+              + ("" if diff is None else
+                 f", max|W - W_against| {diff:.3e} (bitwise {bitwise})"),
               flush=True)
     if args.save:
         torch.save(saved, args.save)

@@ -17,7 +17,9 @@ fused local-step kernel, :mod:`repro_torch.kernels.prox_step`), the mesh
 runtime on ``torch.distributed``, preemption-safe solves (``solve(...,
 ckpt_dir=)`` and :func:`resume`, with the fault harness
 :mod:`repro_torch.faults`), device round metrics (``metrics=True``), the
-streaming re-solver (:mod:`repro_torch.train.streaming`) and the LM
+streaming re-solver (:mod:`repro_torch.train.streaming`), the static
+checks (:mod:`repro_torch.analysis`, ``solve(..., verify="static")``), the
+Fig-4 real-data surrogates (:mod:`repro_torch.data.realworld`) and the LM
 serving paths.  The kernels are written by hand in CUDA C++ for
 ``sm_90a``.
 """

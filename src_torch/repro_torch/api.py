@@ -12,7 +12,8 @@ the hand-off to the serving half::
     server = MTLServer(model)                 # mtl_score kernel per wave
 
 A solve with ``ckpt_dir=`` survives preemption: ``resume(ckpt_dir)``
-finishes it bit-identically.
+finishes it bit-identically; one with ``verify="static"`` first holds a
+twin's collectives to its ledger (:mod:`repro_torch.analysis`).
 """
 from __future__ import annotations
 
@@ -49,9 +50,16 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
     gradient-served solver (``STOCHASTIC_SOLVERS``) on the reference's
     seeded draws; ``batch_size == n`` with ``local_steps == 1`` is the
     full-batch solve.  ``scan`` is accepted and changes nothing: both
-    drivers are one eager loop.  What the port cannot run yet raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it:
-    ``verify=`` (item 9).
+    drivers are one eager loop.
+
+    ``verify="static"`` first runs a twin of the configuration for at
+    most ``analysis.verify.VERIFY_ROUNDS`` rounds (result thrown away)
+    and holds the c10d collectives each round issues to the ledger that
+    charged them (:func:`repro_torch.analysis.verify_static`); a finding
+    raises :class:`~repro_torch.analysis.AnalysisError` before the real
+    solve runs, and a verified result carries
+    ``extras["static_verify"] == "ok"``.  It takes the declarative
+    ``backend``/``mesh`` arguments, not ``runtime=``.
 
     ``ckpt_dir`` / ``checkpoint_every`` / ``ckpt_keep`` make the solve
     preemption-safe (:mod:`repro_torch.runtime.recovery`): the rounds run
@@ -96,10 +104,25 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
         hp["local_steps"] = local_steps
         hp["batch_seed"] = batch_seed
     if metrics:
+        # set before the verify / checkpoint blocks, so the twin runs the
+        # instrumented program and a resumed solve the same configuration
         hp["metrics"] = True
     if verify is not None:
-        raise NotImplementedError(
-            "verify= comes with the static checks, ROADMAP Queue 1 item 9")
+        if verify != "static":
+            raise ValueError(f"unknown verify mode {verify!r}; "
+                             f"have 'static'")
+        if runtime is not None:
+            raise ValueError("verify='static' needs the declarative "
+                             "backend/mesh arguments, not runtime=")
+        from .analysis import verify_static
+        vhp = dict(hp)
+        if rounds is not None:
+            vhp["rounds"] = rounds
+        if sv_engine is not None:
+            vhp["sv_engine"] = sv_engine
+        verify_static(prob, method, backend=backend, mesh=mesh, axis=axis,
+                      data_shards=data_shards, data_axis=data_axis,
+                      scan=scan, **vhp)
     if runtime is None:
         runtime = make_runtime(backend, prob, mesh=mesh, axis=axis,
                                data_axis=data_axis, data_shards=data_shards)
@@ -138,6 +161,8 @@ def solve(prob, method: str = "dgsp", backend: str = "sim", *,
         runtime.collective_floats_per_chip
     res.extras["data_collective_floats_per_chip"] = \
         runtime.data_collective_floats_per_chip
+    if verify is not None:
+        res.extras["static_verify"] = "ok"
     if ckpt is not None:
         res.extras["checkpoint"] = dict(ckpt.info)
     return res

@@ -309,7 +309,11 @@ def admm(prob: MTLProblem, lam: float = 1e-3, rho: float = 1.0,
         Z_new, nn, svc = sv.shrink(W_full + Q / rho, lam / rho,
                                    state["sv"])                  # (A.2)
         Q_new = Q + rho * (W_full - Z_new)                       # (A.3)
-        out = {"W": W_local, "Z": rt.broadcast(Z_new, "z columns"),
+        # the fused step on the card hands back a transposed view; the
+        # carry keeps one layout (the next step reads it through
+        # ``.T.contiguous()``, so no value changes)
+        out = {"W": W_local.contiguous(),
+               "Z": rt.broadcast(Z_new, "z columns"),
                "Q": rt.broadcast(Q_new, "q columns"), "sv": svc}
         if metrics:
             # the grad slot reports the primal residual W - Z (the

@@ -242,3 +242,19 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     indices of shape ``logits.shape[:-1]``."""
     g = gumbel(key, tuple(logits.shape), logits.dtype)
     return torch.argmax(g + logits, dim=-1)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for an int ``n``: ``arange(n)``
+    (int32) sorted by fresh 32-bit keys, once per round of
+    ``ceil(3 ln n / ln(2**32 - 1))`` (``_shuffle``), each round's keys
+    drawn from the second half of a split.  The sort is stable, as
+    ``lax.sort_key_val``'s is, so equal keys keep their order."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int32, device=key.device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_MASK))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, 32, (n,)), stable=True).indices
+        x = x[order]
+    return x

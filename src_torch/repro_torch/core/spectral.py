@@ -201,7 +201,11 @@ class ShrinkEngine:
         counter (host ints)."""
         if not self.lazy:
             return {}
-        return {"V": _probe(self.m, self.K, self.dtype, self.device),
+        # the carried basis V is kept contiguous whichever branch made
+        # it (QR, the SVD's Vh view, or a Ritz product each lay it out
+        # otherwise), so every round reads it in one layout
+        return {"V": _probe(self.m, self.K, self.dtype,
+                            self.device).contiguous(),
                 "s": torch.zeros((self.K,), dtype=self.dtype,
                                  device=self.device),
                 "T": _probe(self.m, self.tail_block, self.dtype, self.device),
@@ -272,7 +276,7 @@ class ShrinkEngine:
             # reseed (true top-K right subspace)
             W, nn, S, Vt = self._exact_shrink(M, tau)
             Vc, sc, ex = Vt[:K].T, S[:K], 1
-        return W, nn, {"V": Vc, "s": sc, "T": Tb, "warm": 1,
+        return W, nn, {"V": Vc.contiguous(), "s": sc, "T": Tb, "warm": 1,
                        "exact_rounds": carry["exact_rounds"] + ex}
 
     def project(self, M: torch.Tensor, radius, carry: Carry
@@ -308,7 +312,7 @@ class ShrinkEngine:
             S_proj = _simplex_cap(Se, radius)[0] if bool(torch.sum(Se) > radius) \
                 else Se
             W, Vc, sc, ex = (Ue * S_proj[None, :]) @ Vte, Vte[:K].T, Se[:K], 1
-        return W, {"V": Vc, "s": sc, "T": Tb, "warm": 1,
+        return W, {"V": Vc.contiguous(), "s": sc, "T": Tb, "warm": 1,
                    "exact_rounds": carry["exact_rounds"] + ex}
 
 

@@ -61,6 +61,7 @@ KINDS = ("sigkill", "crash_rename", "corrupt", "stale_manifest")
 PLAN_ENV = "REPRO_TORCH_FAULT_PLAN"
 CHILD_TIMEOUT_S = 120.0        # every child process, start to exit
 GROUP_TIMEOUT_S = 60.0         # every process group's collective timeout
+DURABLE_WAIT_S = 10.0          # a non-writer's wait for the segment on disk
 
 # the fault each kind plants: the firing of its event it dies on (the
 # byte-level kinds die late, so that there is a segment to damage)
@@ -88,10 +89,40 @@ class FaultPlan:
         return json.dumps(dataclasses.asdict(self))
 
 
+def _wait_durable(ckpt_dir: str, step: int, writer: bool,
+                  timeout: float = DURABLE_WAIT_S) -> None:
+    """Return once the store's MANIFEST names segment ``step`` or a later
+    one (``latest >= step``).  Only rank 0 writes the store, and the
+    ``segment_saved`` event fires on every rank as soon as its own save
+    step returns, so a rank that does not write must wait for the writer
+    before it dies, or the segment its plan counts may never land.  The
+    writer returns at once.  Past ``timeout`` seconds it raises, and the
+    planned death does not happen."""
+    if writer:
+        return
+    from .runtime.recovery import MANIFEST
+    path = os.path.join(ckpt_dir, MANIFEST)
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with open(path) as f:
+                latest = json.load(f).get("latest")
+        except (OSError, ValueError):
+            latest = None
+        if latest is not None and latest >= step:
+            return
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"segment {step} never became durable in {ckpt_dir} within "
+                f"{timeout} s (MANIFEST latest {latest}); not killing")
+        time.sleep(0.01)
+
+
 def arm(plan: FaultPlan) -> None:
     """Install the plan on this process's checkpoint fault hook."""
     if plan.kind not in KINDS:
         raise ValueError(f"unknown fault kind {plan.kind!r}; have {KINDS}")
+    from .runtime.recovery import is_primary
     from .train import checkpoint as ck
     count = {"n": 0}
 
@@ -100,6 +131,8 @@ def arm(plan: FaultPlan) -> None:
             return
         count["n"] += 1
         if count["n"] == plan.after:
+            if event == "segment_saved":
+                _wait_durable(info["ckpt_dir"], info["step"], is_primary())
             # a real preemption, not an exception: nothing gets to clean
             # up, flush, or finish the rename
             os.kill(os.getpid(), signal.SIGKILL)

@@ -45,6 +45,7 @@ for signature parity), so the two give identical W and ledgers.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -143,6 +144,9 @@ class ProtocolRuntime:
         # ``repro_torch.solve(..., ckpt_dir=)``), run_rounds hands its
         # whole drive to the segmented, resumable driver
         self._ckpt = None
+        # when set (``repro_torch.analysis.StaticCapture``), each round's
+        # charges, state and c10d collectives are handed to it
+        self._capture = None
 
     # ------------------------------------------------------------------
     # topology
@@ -364,18 +368,42 @@ class ProtocolRuntime:
                 "(or let repro_torch.solve build one) per call")
         self._used = True
 
+    def _capturing(self, phase):
+        """The static capture's context for the collectives issued in
+        ``phase`` (a round index or "setup"); nothing without a
+        capture."""
+        if self._capture is None:
+            return contextlib.nullcontext()
+        return self._capture.phase(phase)
+
+    def _hand_back(self, value, shard_it: bool):
+        """:meth:`_global_entry`, with a capture shown the entry and the
+        collectives its gather issues (the "output" phase)."""
+        if self._capture is None:
+            return self._global_entry(value, shard_it)
+        self._capture.hand_back(self, value, shard_it)
+        with self._capture.phase("output"):
+            return self._global_entry(value, shard_it)
+
     def _run_body(self, body: RoundBody, k: int, state, data,
                   first: bool):
         """Run round ``k`` and return its state; the charges of the
         ``first`` round this driver runs become the template, every
-        later round must repeat them."""
+        later round must repeat them.  A capture, when attached, is
+        handed the round's input and output state and its charges
+        (it may end a twin solve before the round runs)."""
+        if self._capture is not None:
+            self._capture.round_start(self, k, state)
         self._round_events = []
         self._round_data_events = []
         self._recording = True
         try:
-            state = self._call_body(body, k, state, data)
+            with self._capturing(k):
+                out = self._call_body(body, k, state, data)
         finally:
             self._recording = False
+        if self._capture is not None:
+            self._capture.round_end(self, k, state, out)
         if first:
             self._template = self._round_events
             self._data_template = self._round_data_events
@@ -387,7 +415,7 @@ class ProtocolRuntime:
                 f"{self._template} and {self._data_template}: every round "
                 f"of a protocol must run the same collectives, or the "
                 f"replayed ledger would be wrong")
-        return state
+        return out
 
     def run_rounds(self, rounds: int, body: RoundBody,
                    state: Dict[str, object],
@@ -422,7 +450,10 @@ class ProtocolRuntime:
         if self._ckpt is not None:
             return self._ckpt.drive(self, rounds, body, state, sharded,
                                     records, count_rounds)
-        data = self._round_data()
+        if self._capture is not None:
+            self._capture.begin(self, state, sharded)
+        with self._capturing("setup"):
+            data = self._round_data()
         state = self._local_state(state, sharded)
         snap_sets = [set(r.snap_rounds(rounds)) for r in records]
         for t in range(rounds):
@@ -430,9 +461,9 @@ class ProtocolRuntime:
             self._replay_round(count_rounds)
             for r, sset in zip(records, snap_sets):
                 if t in sset:
-                    r.sink.record(t + 1, self._global_entry(
+                    r.sink.record(t + 1, self._hand_back(
                         state[r.key], r.key in sharded))
-        return {k: self._global_entry(v, k in sharded)
+        return {k: self._hand_back(v, k in sharded)
                 for k, v in state.items()}
 
     def one_shot(self, body: RoundBody, state: Dict[str, object],

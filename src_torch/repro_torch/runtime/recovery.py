@@ -412,7 +412,10 @@ class SolveCheckpointer:
                                            keep=self.keep)
                 _touch_manifest_latest(self.ckpt_dir, end)
         # the fault hook fires on EVERY process (a preemption does not
-        # politely pick the writer), after the store write is durable
+        # politely pick the writer) once this process's part is done:
+        # on rank 0 after the store write is durable, on the others at
+        # once, without waiting for rank 0 (faults._wait_durable makes a
+        # planned death there wait for the segment)
         ckpt_store._fire("segment_saved", step=end, ckpt_dir=self.ckpt_dir,
                          final=final)
 

@@ -13,7 +13,8 @@ pytest process.
 Layouts: ``"1d"`` is a 4x1 ``("tasks",)`` mesh, ``"2d"`` a 2x2
 ``("tasks", "data")`` mesh.  Each also runs the recovery matrix
 (:data:`RECOVERY`): checkpointed and resumed mesh solves, their solve
-stores beside the world's ``file://`` store.  ``cluster`` starts two processes that join
+stores beside the world's ``file://`` store; and the static checks on
+its layout (``repro_torch.analysis``).  ``cluster`` starts two processes that join
 over TCP through ``init_cluster``, on a port the OS assigned, the worker
 before its coordinator.
 
@@ -198,6 +199,18 @@ def one_rank_group(tmp_dir):
         yield
     finally:
         dist.destroy_process_group()
+
+
+def sim_charges() -> dict:
+    """The analysis matrix on the port's sim, scan driver, in this
+    process: ``{label: (charged floats per machine, charged vectors per
+    round)}``, which every mesh layout must charge too."""
+    from repro_torch.analysis import run_analysis
+    report = run_analysis(layouts=("sim",), drivers=("scan",),
+                          lint_paths=False, device="cpu")
+    assert report.ok, report.render()
+    return {c.method: (c.charged_floats_per_machine,
+                       c.charged_vectors_per_round) for c in report.cases}
 
 
 def launch(layout: str, tmp_dir) -> dict:
@@ -421,6 +434,46 @@ def _timeouts(mesh) -> dict:
             for name in mesh.mesh_dim_names}
 
 
+def _verify(mesh, out, layout: str) -> None:
+    """The static checks on this layout: the analysis matrix, a verified
+    solve against the unverified one, and a runtime whose gather also
+    moves an uncharged all-reduce, refused."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.analysis import AnalysisError, run_analysis
+    from repro_torch.runtime import MeshRuntime
+    # one driver: scan= runs the same loop (the CLI and
+    # test_torch_analysis.py hold the ledger equal across both)
+    report = run_analysis(layouts=(layout,), drivers=("scan",),
+                          lint_paths=False, device="cpu")
+    prob = _problem("sq")
+    kw = dict(method="proxgd", backend="mesh", mesh=mesh, rounds=4,
+              lam=0.01, device="cpu")
+    plain = repro_torch.solve(prob, **kw)
+    ver = repro_torch.solve(prob, verify="static", **kw)
+    real = MeshRuntime.gather_columns
+
+    def rogue(self, x, note=""):
+        s = x.sum(dim=0)
+        dist.all_reduce(s, group=self._tasks_group)   # never charged
+        return real(self, x, note)
+
+    MeshRuntime.gather_columns = rogue
+    refused = ""
+    try:
+        repro_torch.solve(prob, verify="static", **kw)
+    except AnalysisError as e:
+        refused = str(e)
+    finally:
+        MeshRuntime.gather_columns = real
+    out["verify"] = {"report": report.to_dict(),
+                     "static_verify": ver.extras["static_verify"],
+                     "bitwise": bool(torch.equal(ver.W, plain.W)),
+                     "ledger_equal": ver.comm.ledger() == plain.comm.ledger(),
+                     "refused": refused}
+
+
 def _cases_1d(out, store):
     import repro_torch
     from repro_torch.runtime import task_data_mesh, task_mesh
@@ -432,6 +485,7 @@ def _cases_1d(out, store):
     _shims(mesh, out)
     _sharded_tables(mesh, out)
     _recovery(mesh, out, store)
+    _verify(mesh, out, "mesh")
     X, y, _ = arrays("sq")
     from repro_torch.core.methods import MTLProblem
     six = MTLProblem.make(X[:6], y[:6], "squared", device="cpu")
@@ -455,6 +509,7 @@ def _cases_2d(out, store):
     _full_matrix(repro_torch.solve, mesh, out, data_shards=2)
     _stochastic(repro_torch.solve, mesh, out, data_shards=2)
     _recovery(mesh, out, store, data_shards=2)
+    _verify(mesh, out, "mesh2d")
     # the data-axis payloads by the reference's rule: the one Gram-cache
     # all-reduce for gram solvers, one (p, L) pmean a round for raw ProxGD
     out["analytic"] = {
@@ -495,6 +550,7 @@ def _rank_world(layout: str, rank: int, store: str, out_path: str) -> None:
     # every module the cases run, imported before the rendezvous
     import repro_torch.core.distributed  # noqa: F401
     import repro_torch.core.methods  # noqa: F401
+    import repro_torch.analysis  # noqa: F401
     import repro_torch.faults  # noqa: F401
     import repro_torch.runtime.recovery  # noqa: F401
     import repro_torch.serve.mtl  # noqa: F401

@@ -11,10 +11,13 @@ the last after its second durable segment, kills the other at once, and
 resumes with a fresh launch.  Last, the harness must have left no plan in
 this process's environment and no armed hook in either package.
 """
+import json
 import os
 import pathlib
 import shutil
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -82,6 +85,37 @@ def test_multiprocess_kill_one_rank_and_resume(tmp_path):
     assert report["bit_identical"] and report["recovered"], report
     assert report["resumed_from"] == 6
     assert not list(tmp_path.glob("*.rendezvous.tmp*"))
+
+
+def _set_latest(store, step):
+    """Point the store's MANIFEST at ``step``, atomically, as rank 0
+    does after a durable save."""
+    tmp = store / "MANIFEST.json.tmp"
+    tmp.write_text(json.dumps({"latest": step}))
+    os.replace(tmp, store / "MANIFEST.json")
+
+
+def test_a_rank_that_does_not_write_dies_only_after_the_segment_lands(
+        tmp_path):
+    """The hook's wait, in process: a non-writer returns once the
+    MANIFEST names the step (written by a thread ~0.3 s later), raises
+    when the bound passes first, and the writer never waits."""
+    _set_latest(tmp_path, 3)
+    writer = threading.Timer(0.3, _set_latest, (tmp_path, 6))
+    t0 = time.monotonic()
+    writer.start()
+    try:
+        faults._wait_durable(str(tmp_path), 6, writer=False, timeout=10.0)
+    finally:
+        writer.join(timeout=10.0)
+    assert not writer.is_alive()
+    assert 0.25 <= time.monotonic() - t0 < 10.0
+    with pytest.raises(RuntimeError, match="segment 9 never became durable"):
+        faults._wait_durable(str(tmp_path), 9, writer=False, timeout=0.3)
+    t0 = time.monotonic()
+    faults._wait_durable(str(tmp_path / "nowhere"), 9, writer=True,
+                         timeout=0.0)
+    assert time.monotonic() - t0 < 0.1
 
 
 def test_plans_and_damage_are_the_references(tmp_path):

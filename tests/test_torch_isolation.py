@@ -168,6 +168,52 @@ def test_the_recovery_metrics_and_streaming_path_leaves_jax_unloaded(
     assert proc.stdout.strip() == "clean"
 
 
+def test_the_static_checks_and_surrogates_leave_jax_unloaded(tmp_path):
+    """The analysis package and the Fig-4 surrogates import, and a
+    verified solve on the sim and the one-rank mesh, the repo lints and
+    a surrogate with its task split and metric run, without JAX or the
+    reference, and without writing the process's environment."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
+        "import repro_torch.analysis, repro_torch.analysis.__main__\n"
+        "import repro_torch.data.realworld as rw\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch import solve\n"
+        "from repro_torch.analysis import build_problem, lint_repo\n"
+        "from repro_torch.core import prng\n"
+        "from repro_torch.core.methods import MTLProblem\n"
+        "from repro_torch.runtime import init_cluster\n"
+        "import os\n"
+        "env = dict(os.environ)\n"
+        "prob, _ = build_problem(device='cpu')\n"
+        f"init_cluster('file://{tmp_path / 'store'}', 1, 0, device='cpu')\n"
+        "for backend in ('sim', 'mesh'):\n"
+        "    res = solve(prob, method='dgsp', rounds=2, backend=backend,\n"
+        "                verify='static', device='cpu')\n"
+        "    assert res.extras['static_verify'] == 'ok'\n"
+        "dist.destroy_process_group()\n"
+        "assert lint_repo() == []\n"
+        "spec = rw.REAL_SPECS['landmine']\n"
+        "Xs, ys, Xt, yt = rw.generate_surrogate(prng.PRNGKey(304, 'cpu'),\n"
+        "                                       spec, device='cpu')\n"
+        "train, _ = rw.split_tasks(spec.m, 4, device='cpu')\n"
+        "Xs, ys = rw.take_tasks(train, Xs, ys)\n"
+        "res = solve(MTLProblem.make(Xs, ys, 'logistic', device='cpu'),\n"
+        "            method='dgsp', rounds=2, device='cpu')\n"
+        "Xt, yt = rw.take_tasks(train, Xt, yt)\n"
+        "assert 0 <= float(rw.test_metric(spec.task, res.W, Xt, yt)) <= 1\n"
+        "assert dict(os.environ) == env, 'the run wrote the environment'\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
 def test_the_lm_serving_path_leaves_jax_unloaded():
     """The slice-4 modules import, and a seeded model serves a wave on
     the CPU, without JAX or the reference."""
@@ -261,3 +307,11 @@ def test_entry_points_default_to_the_card():
         task_data_mesh(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_cluster("file:///unused", 1, 0)
+    from repro_torch.analysis import build_problem, run_analysis
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_problem()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_analysis(layouts=("sim",), lint_paths=False)
+    from repro_torch.analysis.__main__ import main as analysis_cli
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis_cli(["--layouts", "sim", "--no-lint"])

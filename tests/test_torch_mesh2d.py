@@ -282,3 +282,30 @@ def test_mesh_2d_recovery_and_resumed_bitidentical(world, tag):
     rj = repro.solve(ref_problem(), data_shards=D, **mw.RECOVERY[tag])
     _close(row["res"]["W"], rj.W)
     assert row["res"]["ledger"] == rj.comm.ledger()
+
+
+def test_mesh2d_static_verify(world):
+    """``repro_torch.analysis`` on the 2x2 layout: every cell of the
+    matrix (each solver, full batch and stochastic) verifies and charges
+    the floats and vectors per round of the port's sim, which
+    ``test_torch_analysis.py`` holds to the reference's;
+    ``verify="static"`` returns W and the ledger bitwise the unverified
+    solve's; a gather that also moves an uncharged all-reduce is refused
+    with COMM001 naming the op, the axis and the floats."""
+    from repro_torch.analysis.verify import STOCHASTIC_CASES, STOCHASTIC_TAG
+    v = world["verify"]
+    cases = v["report"]["cases"]
+    assert v["report"]["ok"], ([c["findings"] for c in cases]
+                               + v["report"]["cross_findings"])
+    labels = sorted(repro.core.solver_names()) + \
+        [m + STOCHASTIC_TAG for m in sorted(STOCHASTIC_CASES)]
+    assert [(c["method"], c["layout"], c["driver"]) for c in cases] == \
+        [(m, "mesh2d", "scan") for m in labels]
+    sim = mw.sim_charges()
+    for c in cases:
+        assert (c["charged_floats_per_machine"],
+                c["charged_vectors_per_round"]) == sim[c["method"]], \
+            c["method"]
+    assert v["static_verify"] == "ok" and v["bitwise"] and v["ledger_equal"]
+    assert "COMM001" in v["refused"] and "c10d.allreduce_" in v["refused"]
+    assert "'tasks'" in v["refused"] and "floats" in v["refused"]

@@ -179,8 +179,10 @@ def test_registry_and_what_is_not_ported(tmp_path):
     assert torch.equal(inst.W, bare.W)
     assert inst.extras["metrics"]["round"].tolist() == [1, 2, 3, 4]
     assert inst.extras["metrics"]["grad_norm"].shape == (4,)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        repro_torch.solve(tp, method="dgsp", verify="static", device="cpu")
+    ver = repro_torch.solve(tp, method="dgsp", rounds=4, verify="static",
+                            device="cpu")
+    assert ver.extras["static_verify"] == "ok" and torch.equal(ver.W, bare.W)
+    assert ver.comm.ledger() == bare.comm.ledger()
     with pytest.raises(ValueError, match="full-batch only"):
         repro_torch.solve(tp, method="dfw", batch_size=N, device="cpu")
 
