@@ -142,12 +142,34 @@ raises and the script exits non-zero:
    seeded-temperature runs repeatable, the logits of prefill and the
    teacher-forced decode steps within ``SSM_SERVE_TOL`` of those through
    the plain version, two wrong decode scans outside it, prefill and
-   decode times, and a ``torch.profiler`` window over one wave.
+   decode times, and a ``torch.profiler`` window over one wave;
+12. LM training at full width, gradients through both LM kernels (the
+   kernel forward, the reference route's twin differentiated in
+   backward): (a) gemma2-2b FULL, B=1, S=4608 (the 4096 window binds),
+   in float32 and in bfloat16 (the training steps' model, batch and
+   tensor-core route): one ``lm_loss`` backward through the kernels and
+   one with the plain attention forced on the card, every gradient leaf
+   present and nonzero, the loss and each leaf within
+   ``TRAIN_GRAD_TOL`` (relative L2) of the plain run's, 26 launches in
+   the forward and 26 in the remat recompute; the kernel or its twin
+   with the window dropped must each fail the check; (b) 10 bf16 steps
+   of ``make_train_step`` on gemma2-2b FULL at B=1, S=4608 on the
+   seeded token stream: the loss finite and falling, every launch on
+   the tensor-core route, step time, tokens/s, MFU (6·N·D over the
+   bf16 peak), peak memory, then a ``torch.profiler`` window over an
+   11th step; (c) falcon-mamba-7b at full width cut to 8 of its 64
+   layers: (a) at S=2048 (the chunked twin) against the plain scan,
+   the D skip dropped in the kernel or the twin failing it, and 10 bf16
+   steps as in (b); (d) ``MTLHead`` on mean-pooled features
+   (``extract_features`` over ``hidden_states``) of (b)'s model after
+   its 11 steps: DGSP (U orthonormal, ``as_low_rank``) and a logistic
+   ProxGD head that launches ``mtl_grad``, card W against the port's
+   CPU W.
 
 Phase 3 also checks the seeded sampler on the card against the CPU,
-bit for bit, and times a draw.  Phases 4, 6-9d and the served waves and
-f32 anchors of 10 and 11 each set the launch counters to 0 just before
-they run and read them just after.  It prints a ``{"kernels": [...]}`` line and,
+bit for bit, and times a draw.  Phases 4, 6-9d, the served waves and
+f32 anchors of 10 and 11 and the runs of 12 each set the launch counters
+to 0 just before they run and read them just after.  It prints a ``{"kernels": [...]}`` line and,
 last, the contract line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
@@ -156,6 +178,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import json
 import math
 import os
@@ -173,14 +196,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+REPO = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "src_torch"))
+# the H100 machine model (data-sheet rates) of the port's roofline
+from repro_torch.launch.roofline import (  # noqa: E402
+    F32_FLOPS as F32_FLOPS_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_FLOPS_PER_S, SFU_PER_S)
+
 SEED = 0
 P, M, R = 2048, 4096, 4          # BENCH_serve.json acceptance point
 WAVE = 256                       # MTLServer batch_size of the README
 N_REQUESTS = 1024                # 4 waves
 NOISE = 0.01                     # off-subspace noise in W
 BATCHES = (64, 256, 4096)        # kernel timing points
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 # kernel vs plain: both sides multiply the same f32 values; only the
 # order of the f32 sums differs (warp shuffles vs cuBLAS), which moves a
 # p=2048 sum by ~1e-7 of its scale
@@ -284,9 +312,6 @@ def score_rw4_plan(score_kernel, B):
     phase 3's edge shapes, which the plan gives one row a warp."""
     rows = score_kernel.WARPS // 2 * 4
     return score_kernel.Plan(2, 4, rows, -(-B // rows))
-
-
-REPO = pathlib.Path(__file__).resolve().parent
 
 
 def log(msg: str) -> None:
@@ -1849,7 +1874,6 @@ def verify_phase(grad_ops, prox_ops, d_data, dev="cuda"):
 # phase 10, the LM serving path (gemma2-2b FULL) and flash_attention
 # ---------------------------------------------------------------------------
 LM_ARCH = "gemma2-2b"
-BF16_FLOPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 # kernel vs plain: the reference's own kernel tolerances
 # (tests/test_kernels.py:18-19), times max|out| and times each output
 # row's own scale (``fa_error``)
@@ -1921,6 +1945,11 @@ FA_CASES = (
      "ring", 300, 50.0),
     ("ring 5 queries hd=64 f32 split", 2, 5, 3000, 4, 2, 64, _F32, "ring",
      None, 30.0),
+    # the training steps' calls (phase 12): B=1, S=4608, on the tensor cores
+    ("train global bf16", 1, 4608, 4608, 8, 4, 256, _BF16, "prefill", None,
+     50.0),
+    ("train local bf16", 1, 4608, 4608, 8, 4, 256, _BF16, "prefill", 4096,
+     50.0),
 )
 FA_MAIN = FA_CASES[:4]
 # the cases meant for the tensor-core route (bf16, at least 64 query rows:
@@ -1931,7 +1960,8 @@ FA_MAIN = FA_CASES[:4]
 FA_WGMMA = ("prefill global bf16", "prefill local bf16",
             "S=130 hd=256 group 2 bf16", "S=300 hd=64 group 1 bf16",
             "S=130 hd=128 group 12 bf16", "S=257 hd=128 group 9 bf16",
-            "ring 96 queries hd=256 bf16", "S=6 hd=64 group 12 bf16")
+            "ring 96 queries hd=256 bf16", "S=6 hd=64 group 12 bf16",
+            "train global bf16", "train local bf16")
 FA_DECODE = ("decode global bf16", "decode local bf16", "decode local f32",
              "decode global f32 no softcap", "ring 200 slots hd=64 bf16",
              "ring 3 queries hd=256", "decode hd=64 f32 group 1",
@@ -2304,12 +2334,14 @@ def fa_kernel_phase():
 @contextlib.contextmanager
 def plain_attention(attn_mod, decode_change=None):
     """Send the model's attention through the plain version on the card,
-    for the comparison only: the port itself has no such switch.
-    ``decode_change`` (keyword arguments -> keyword arguments), if given,
-    alters the decode calls (one query), to make a wrong attention."""
+    for the comparison only: the port itself has no such switch.  Under
+    autograd the plain version is differentiated as it stands (the
+    kernel's ``twin`` is dropped).  ``decode_change`` (keyword arguments
+    -> keyword arguments), if given, alters the decode calls (one query),
+    to make a wrong attention."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    def plain(q, k, v, **kw):
+    def plain(q, k, v, twin=None, **kw):
         if decode_change is not None and q.shape[1] == 1:
             kw = decode_change(kw)
         return attention_ref(q, k, v, **kw)
@@ -2638,9 +2670,6 @@ def lm_phase(fa_ops):
 # phase 11, falcon-mamba-7b served at full width, and ssm_scan
 # ---------------------------------------------------------------------------
 SSM_ARCH = "falcon-mamba-7b"
-# exponentials: the SFU's 16 a clock on each of 132 SMs at the 1.98 GHz
-# of the f32 peak (67 TFLOP/s = 132 x 128 x 2 x 1.98e9)
-SFU_PER_S = 132 * 16 * 1.98e9
 # kernel vs plain: the reference's f32 tolerance (tests/test_kernels.py:
 # 18-19) for every input dtype, times max|y| and times each output row's
 # max (``ssm_error``).  Both sides convert the same bf16 values exactly
@@ -2768,6 +2797,9 @@ SSM_FUSED_CASES = (
      "model", "model"),
     ("fused N=16 S=33 f32 full grid", 8, 33, 8192, 16, _F32, "random",
      "model", "random"),
+    # the training steps' calls (phase 12): B=1, S=2048, no state
+    ("fused train B=1 S=2048 bf16", 1, 2048, 8192, 16, _BF16, None, "model",
+     "model"),
 )
 SSM_FUSED_MAIN = SSM_FUSED_CASES[:2]
 
@@ -3304,7 +3336,8 @@ def ssm_fused_phase(ssm_ops, ssm_kernel, covered):
 def plain_scan(ssm_mod, decode_change=None):
     """Send the model's selective scans (both entries) through the plain
     version on the card, for the comparison only: the port itself has no
-    such switch.  ``decode_change`` (keyword arguments -> keyword
+    such switch.  Under autograd the plain version is differentiated as
+    it stands (the kernel's ``twin`` is dropped).  ``decode_change`` (keyword arguments -> keyword
     arguments), if given, alters the decode scans (one step), to make a
     wrong scan."""
     from repro_torch.kernels.ssm_scan.ref import (mamba_scan_ref,
@@ -3317,7 +3350,7 @@ def plain_scan(ssm_mod, decode_change=None):
         return selective_scan_ref(**kw)
 
     def plain_fused(x, dt_lin, dt_bias, Bc, Cc, A_log, D, z, *, h0=None,
-                    h_out=None):
+                    h_out=None, twin=None):
         kw = dict(x=x, dt_lin=dt_lin, dt_bias=dt_bias, Bc=Bc, Cc=Cc,
                   A_log=A_log, D=D, z=z, h0=h0)
         if decode_change is not None and x.shape[1] == 1:
@@ -3415,12 +3448,418 @@ def mamba_phase(ssm_ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 12, LM training at full width: gradients through the LM kernels
+# ---------------------------------------------------------------------------
+TRAIN_S = 4608                   # gemma2: the 4096 window binds on the local
+                                 # layers (the f32 anchor's S)
+TRAIN_STEPS = 10
+TRAIN_WARMUP = 2
+# the loss (relative) and, per leaf, ||g_kernel - g_plain|| / ||g_plain||,
+# by the model's dtype, from the card's readings (PERF.md §2).  float32:
+# ~5x the worst (3.9e-06, falcon-mamba's dt_proj; gemma2's 1.0e-06),
+# below every control (the softcap dropped in the kernel, 7.0e-05, the
+# least).  bfloat16, at the training steps' model, batch and route: ~3x
+# the worst (1.7e-02, falcon-mamba; gemma2's 5.8e-03).  A window or
+# softcap bug moves bf16 gradients less than bf16 rounding does at this
+# init: phases 10 and 11 hold the kernels at the training shapes
+# (``FA_CASES``, ``SSM_FUSED_CASES``) with those controls.
+TRAIN_GRAD_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+# falcon-mamba at full width (d 4096, I 8192, N 16), depth cut to 8 of 64:
+# at 64 layers the f32 moments alone need ~58 GB, ~87 GB of state in all
+MAMBA_TRAIN_LAYERS = 8
+MAMBA_TRAIN_S = 2048             # ssm_chunk 1024 divides it: the chunked twin
+HEAD = dict(m=6, n=40, S=16, rounds=4, rank=3, logistic_rounds=20, lam=0.01)
+HEAD_W_RTOL = 1e-4
+TRAIN_TARGET_S = 90.0            # the phase's time budget (reported)
+
+
+def train_batch(cfg, S, step, dev="cuda"):
+    """Step ``step`` of the seeded synthetic token stream, B=1, on
+    ``dev``."""
+    from repro_torch.data.tokens import SyntheticTokenStream, TokenPipelineSpec
+    toks, tgts = SyntheticTokenStream(TokenPipelineSpec(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=1,
+        seed=SEED)).batch(step)
+    return {"tokens": torch.from_numpy(toks).to(dev),
+            "targets": torch.from_numpy(tgts).to(dev)}
+
+
+@contextlib.contextmanager
+def swapped_ops(mod, name, **fns):
+    """``mod.<name>`` (a model module's handle on a kernel's ``ops``)
+    replaced by a namespace of ``fns`` while the block runs; each
+    function is made from the real ops module."""
+    real = getattr(mod, name)
+    setattr(mod, name, types.SimpleNamespace(
+        **{k: make(real) for k, make in fns.items()}))
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def attention_controls(attn_mod, dtype):
+    """Wrong attentions that the gradient check in ``dtype`` must fail
+    (name -> context): in float32 the kernel launched with the window,
+    the softcap or the causal mask dropped (its twin right) and the twin
+    with the window or the softcap dropped (the kernel right); in
+    bfloat16 the causal mask dropped in the kernel."""
+    def kernel_without(**change):
+        def make(ops):
+            def call(q, k, v, **kw):
+                return ops.flash_attention(q, k, v, **dict(kw, **change))
+            return call
+        return make
+
+    def twin_without(**change):
+        def make(ops):
+            def call(q, k, v, twin=None, **kw):
+                if twin is not None:     # a call under autograd
+                    cfg = twin.keywords["cfg"].replace(
+                        **change.get("cfg", {}))
+                    twin = functools.partial(
+                        twin, cfg=cfg, **{k_: v_ for k_, v_ in change.items()
+                                          if k_ != "cfg"})
+                return ops.flash_attention(q, k, v, twin=twin, **kw)
+            return call
+        return make
+
+    wrong = {"causal mask dropped in the kernel": kernel_without(
+        causal=False)}
+    if dtype == "float32":
+        wrong.update({
+            "window dropped in the kernel": kernel_without(window=None),
+            "softcap dropped in the kernel": kernel_without(softcap=None),
+            "window dropped in the twin": twin_without(window=None),
+            "softcap dropped in the twin": twin_without(
+                cfg={"attn_logit_softcap": None})})
+    return {what: functools.partial(swapped_ops, attn_mod, "fa_ops",
+                                    flash_attention=make)
+            for what, make in wrong.items()}
+
+
+def scan_controls(ssm_mod):
+    """Wrong scans that the gradient check must fail (name -> context):
+    the kernel launched with the D skip dropped, its twin right; the
+    twin with the D skip dropped, the kernel right."""
+    from repro_torch._recompute import recompute_vjp
+
+    def kernel_no_skip(ops):
+        def call(*inputs, twin=None, **kw):
+            def run(*t):
+                return ops.mamba_scan(*t[:6], torch.zeros_like(t[6]), t[7],
+                                      **kw)
+            if twin is None:         # not under autograd
+                return run(*inputs)
+            return recompute_vjp(run, twin, inputs)
+        return call
+
+    def twin_no_skip(ops):
+        def call(*inputs, twin=None, **kw):
+            def wrong(*t):
+                return twin(*t[:6], t[6] * 0, t[7])
+            return ops.mamba_scan(*inputs, twin=None if twin is None
+                                  else wrong, **kw)
+        return call
+
+    keep = lambda ops: ops.selective_scan  # noqa: E731
+    return {what: functools.partial(swapped_ops, ssm_mod, "ssm_ops",
+                                    mamba_scan=make, selective_scan=keep)
+            for what, make in (("D skip dropped in the kernel", kernel_no_skip),
+                               ("D skip dropped in the twin", twin_no_skip))}
+
+
+def grad_check(tag, cfg, S, plain_ctx, count, dtype="float32", controls=None,
+               routes=None, dev="cuda"):
+    """``lm_loss`` backward of ``cfg`` in ``dtype`` at B=1, S: through
+    the kernels (forward) and their twins (backward), then with the
+    kernel's plain version forced on the card and differentiated as it
+    stands.  Every leaf's gradient present and nonzero; the loss
+    (relative) and, per leaf, ||g_kernel - g_plain|| / ||g_plain|| within
+    ``TRAIN_GRAD_TOL[dtype]``; ``count()`` the kernel's launches: n_layers
+    in the forward, n_layers more in the remat recompute, none in
+    backward (``routes()``, if given, the launches by route).  Each of
+    ``controls`` (name -> a context that makes the kernel or its twin
+    wrong) must put a leaf outside the limit.  In bfloat16 the model,
+    seed and batch are those of the training steps' first step.
+    (``dev="cpu"`` with the plain versions counted is the CPU
+    rehearsal.)"""
+    from repro_torch.models import model as model_mod
+    cfgd = cfg.replace(dtype=dtype)
+    tol = TRAIN_GRAD_TOL[dtype]
+    L = cfgd.n_layers
+    t0 = time.perf_counter()
+    model = model_mod.init_params(
+        cfgd, torch.Generator(device=dev).manual_seed(SEED), dev)
+    model.requires_grad_(True)
+    names = dict(model.named_parameters())
+    batch = train_batch(cfgd, S, 0, dev)
+
+    def loss_and_grads():
+        loss, _ = model_mod.lm_loss(model, batch)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, tuple(names.values()), allow_unused=True)
+
+    def rel_errors(grads):
+        return {name: float((gp.float() if g is None
+                             else g.float() - gp.float()).norm()
+                            / gp.float().norm())
+                for name, g, gp in zip(names, grads, grads_p)}
+
+    reset_counts()
+    loss_k, _ = model_mod.lm_loss(model, batch)
+    _sync(dev)
+    fwd = count()
+    grads_k = torch.autograd.grad(loss_k, tuple(names.values()),
+                                  allow_unused=True)
+    _sync(dev)
+    launches = count()
+    by_route = dict(routes()) if routes else None
+    t_kernel = time.perf_counter() - t0
+    check(fwd == L and launches == L * (2 if cfgd.remat else 1),
+          f"{tag} {dtype} grad check: {fwd} launches in the forward, "
+          f"{launches} in all, want {L} and {L * (2 if cfgd.remat else 1)}")
+    with plain_ctx():
+        lp, grads_p = loss_and_grads()
+        _sync(dev)
+        check(count() == launches, f"{tag}: the plain run launched the "
+              f"kernel")
+    lk = float(loss_k.detach())
+    missing = [name for name, g in zip(names, grads_k)
+               if g is None or float(g.norm()) == 0.0]
+    rel = rel_errors(grads_k)
+    del grads_k, loss_k
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(lk - lp) / abs(lp)
+    log(f"[train] {tag} {dtype} grad check B=1 S={S} ({L} layers, "
+        f"{sum(p.numel() for p in names.values()) / 1e9:.3f}e9 params): loss "
+        f"kernel {lk:.6f} plain {lp:.6f} (relative {loss_rel:.3e}); "
+        f"{len(names) - len(missing)} of {len(names)} leaves nonzero; worst "
+        f"leaf ||g_k - g_p||/||g_p|| {rel[worst]:.3e} ({worst}; tol "
+        f"{tol:g}), median {statistics.median(rel.values()):.3e}; launches "
+        f"{fwd} forward + {launches - fwd} recompute, 0 backward"
+        + (f" {by_route}" if by_route else "")
+        + f"; {time.perf_counter() - t0:.1f} s")
+    check(not missing, f"{tag}: no gradient (or a zero one) for {missing}")
+    check(rel[worst] <= tol, f"{tag}: kernel gradient of {worst} disagrees "
+          f"with the plain version's: {rel[worst]}")
+    check(loss_rel <= tol, f"{tag}: kernel loss {lk} vs plain {lp}")
+    wrong = {}
+    for what, ctx in (controls or {}).items():
+        with ctx():
+            lc, grads_c = loss_and_grads()
+        err = rel_errors(grads_c)
+        del grads_c
+        w = max(err, key=err.get)
+        wrong[what] = {"worst_leaf": w, "worst_leaf_rel_l2": err[w],
+                       "loss_rel": abs(lc - lp) / abs(lp)}
+    if wrong:
+        log(f"[train] {tag} {dtype} grad check, wrong kernels and twins must "
+            f"fail it and do: " + "; ".join(
+                f"{what}: worst leaf {c['worst_leaf_rel_l2']:.3e} "
+                f"({c['worst_leaf']}), loss {c['loss_rel']:.3e}"
+                for what, c in wrong.items()))
+    for what, c in wrong.items():
+        check(c["worst_leaf_rel_l2"] > tol, f"{tag} {dtype}: the gradient "
+              f"check passed a run with the {what}")
+    out = {"dtype": dtype, "S": S, "layers": L, "loss_kernel": lk,
+           "loss_plain": lp, "loss_rel": loss_rel, "tol": tol,
+           "leaves": len(names), "worst_leaf": worst,
+           "worst_leaf_rel_l2": rel[worst],
+           "median_leaf_rel_l2": statistics.median(rel.values()),
+           "launches_forward": fwd, "launches": launches,
+           "launches_by_route": by_route, "controls": wrong,
+           "kernel_backward_s": t_kernel,
+           "check_s": time.perf_counter() - t0}
+    del model, names, grads_p
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_steps(tag, cfg, S, count, routes=None, dev="cuda"):
+    """``TRAIN_STEPS`` bf16 steps of ``make_train_step`` on the seeded
+    stream at B=1, S, warmup ``TRAIN_WARMUP``: the loss finite and step
+    10's below step 1's; per-step wall time (each step read back),
+    tokens/s, MFU against the bf16 peak, peak memory, the kernel's
+    launches (2 n_layers a step under remat; ``routes()``, if given, by
+    route).  Returns the numbers, the trained state and the step.
+    (``dev="cpu"`` is the CPU rehearsal: no peak memory.)"""
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.train.steps import (TrainConfig, init_train_state,
+                                         make_train_step)
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP)
+    card = dev == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tcfg,
+                             torch.Generator(device=dev).manual_seed(SEED), dev)
+    step = make_train_step(cfg, tcfg)
+    losses, times, norms = [], [], []
+    reset_counts()
+    for i in range(TRAIN_STEPS):
+        batch = train_batch(cfg, S, i, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    launches = count()
+    by_route = dict(routes()) if routes else None
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    flops = model_flops(cfg, INPUT_SHAPES["train_4k"], n_tokens=S)
+    step_s = statistics.median(times[1:])
+    out = {"S": S, "B": 1, "layers": cfg.n_layers, "steps": TRAIN_STEPS,
+           "losses": losses, "grad_norms": norms, "step_s": times,
+           "median_step_s": step_s, "tokens_per_s": S / step_s,
+           "model_flops": flops, "mfu": flops / (step_s * BF16_FLOPS_PER_S),
+           "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+           "launches_by_route": by_route}
+    log(f"[train] {tag} bf16 {TRAIN_STEPS} steps B=1 S={S} "
+        f"({cfg.n_layers} layers): loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"step {step_s * 1e3:.1f} ms median (first {times[0] * 1e3:.1f}), "
+        f"{S / step_s:.1f} tokens/s, MFU {out['mfu']:.4f} (6·N·D "
+        f"{flops:.3e} FLOP a step at {BF16_FLOPS_PER_S:.3g} FLOP/s); peak "
+        f"memory {peak / 1e9:.2f} GB; kernel launches {launches}"
+        + (f" {by_route}" if by_route else ""))
+    check(all(math.isfinite(v) for v in losses), f"{tag}: loss not finite: "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall over "
+          f"{TRAIN_STEPS} steps: {losses}")
+    check(launches == TRAIN_STEPS * cfg.n_layers * (2 if cfg.remat else 1),
+          f"{tag}: {launches} kernel launches in {TRAIN_STEPS} steps")
+    return out, state, step
+
+
+def profile_step(tag, cfg, S, step, state):
+    """A ``torch.profiler`` window over one more step (step
+    ``TRAIN_STEPS + 1``, which advances ``state``): the device's busy
+    share and its 20 largest kernels."""
+    batch = train_batch(cfg, S, TRAIN_STEPS)
+    kernels, window_us = profile_kernels(lambda: step(state, batch))
+    log(f"[train] {tag} profiled step: " + describe_profile(kernels,
+                                                            window_us))
+    return {"profiled_step_busy_share": sum(kernels.values()) / window_us,
+            "profiled_step_kernel_us": dict(sorted(
+                kernels.items(), key=lambda kv: -kv[1])[:20])}
+
+
+def head_phase(model, grad_ops):
+    """MTLHead on mean-pooled features of a trained model
+    (``extract_features`` over ``hidden_states``): m tasks of n
+    sequences, labels from a rank-3 subspace; DGSP on the card (U
+    orthonormal, ``as_low_rank`` within 1e-3 of W), then a logistic
+    ProxGD head on the card, launching ``mtl_grad``, against the port's
+    CPU fit on the same features."""
+    from repro_torch.core.head import MTLHead, MTLHeadConfig, extract_features
+    from repro_torch.models import hidden_states
+    m, n, S = HEAD["m"], HEAD["n"], HEAD["S"]
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                         (m, n, S))).cuda()
+
+    def pooled(model, tokens):
+        h = hidden_states(model, {"tokens": tokens})
+        return h.to(torch.float32).mean(1)
+
+    F_ = extract_features(pooled, model, list(toks), batch_size=n)
+    F_ = F_ / (F_.norm(dim=2, keepdim=True) + 1e-6)
+    p = F_.shape[2]
+    U0 = torch.from_numpy(np.linalg.qr(rng.standard_normal((p, 3)))[0]
+                          .astype(np.float32)).cuda()
+    V0 = torch.from_numpy(rng.standard_normal((3, m)).astype(np.float32)).cuda()
+    y = torch.einsum("mnp,pm->mn", F_, U0 @ V0)
+    t0 = time.perf_counter()
+    head = MTLHead(MTLHeadConfig(solver="dgsp", rounds=HEAD["rounds"],
+                                 rank=HEAD["rank"])).fit_features(F_, y)
+    Uh = head.U[:, torch.linalg.norm(head.U, dim=0) > 0]
+    orth = float((Uh.T @ Uh - torch.eye(Uh.shape[1], device="cuda"))
+                 .abs().max())
+    Ud, Vd = head.as_low_rank()
+    fuse = float((Ud @ Vd - head.W).abs().max())
+    mse = float(((head.predict(F_) - y) ** 2).mean())
+    log(f"[head] DGSP {HEAD['rounds']} rounds rank {HEAD['rank']} on pooled "
+        f"features m={m} n={n} p={p}: U ({Uh.shape[1]} directions) "
+        f"orthonormal to {orth:.3e} (tol 1e-4), as_low_rank max|UV - W| "
+        f"{fuse:.3e} (tol 1e-3), train mse {mse:.3e}")
+    check(orth <= 1e-4 and fuse <= 1e-3, "MTLHead: U not orthonormal or "
+          "as_low_rank off W")
+    labels = torch.where(y >= 0, 1.0, -1.0)
+    lcfg = MTLHeadConfig(solver="proxgd", rounds=HEAD["logistic_rounds"],
+                         rank=HEAD["rank"], loss="logistic",
+                         solver_kwargs={"lam": HEAD["lam"]})
+    grad_ops.task_gradients.launches = 0
+    card = MTLHead(lcfg).fit_features(F_, labels)
+    torch.cuda.synchronize()
+    launches = grad_ops.task_gradients.launches
+    cpu = MTLHead(lcfg).fit_features(F_.cpu(), labels.cpu(), device="cpu")
+    scale = max(1.0, float(cpu.W.abs().max()))
+    w_err = float((card.W.cpu() - cpu.W).abs().max())
+    log(f"[head] logistic ProxGD {HEAD['logistic_rounds']} rounds: card vs "
+        f"CPU max|dW| {w_err:.3e} (tol {HEAD_W_RTOL:g} x {scale:.3e}); "
+        f"mtl_grad launches {launches}; {time.perf_counter() - t0:.1f} s")
+    check(launches > 0, "the logistic head never launched mtl_grad")
+    check(w_err <= HEAD_W_RTOL * scale, f"MTLHead logistic: card W vs CPU "
+          f"{w_err}")
+    return {"p": p, "m": m, "n": n, "directions": Uh.shape[1],
+            "u_orthonormal_err": orth, "as_low_rank_err": fuse,
+            "dgsp_train_mse": mse, "logistic_card_vs_cpu_max_abs": w_err,
+            "launches": {"mtl_grad": launches}}
+
+
+def train_phase(fa_ops, ssm_ops, grad_ops):
+    """Phase 12: (a) gemma2-2b FULL, one ``lm_loss`` backward through the
+    kernels against the plain version, in float32 and in bfloat16 at the
+    training shape, each with its wrong kernel and twin; (b) 10 bf16
+    steps of gemma2-2b FULL, then one profiled step; (c) falcon-mamba-7b
+    at full width, 8 layers: (a) at S=2048 and 10 bf16 steps; (d)
+    MTLHead on (b)'s model after the profiled step (11 steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    t_phase = time.perf_counter()
+    fa = lambda: fa_ops.flash_attention.launches  # noqa: E731
+    fa_routes = lambda: fa_ops.flash_attention.launches_by_route  # noqa: E731
+    scan = lambda: ssm_ops.selective_scan.launches  # noqa: E731
+    cfg = get_config(LM_ARCH)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        out[f"gemma_grad_{dtype}"] = grad_check(
+            "gemma2", cfg, TRAIN_S, lambda: plain_attention(attn_mod), fa,
+            dtype, attention_controls(attn_mod, dtype), fa_routes)
+    out["gemma_train"], state, step = train_steps("gemma2", cfg, TRAIN_S, fa,
+                                                  fa_routes)
+    check(out["gemma_train"]["launches_by_route"]["wgmma"]
+          == out["gemma_train"]["launches"], "gemma2 training steps: the "
+          "attention left the tensor-core route")
+    out["gemma_train"].update(profile_step("gemma2", cfg, TRAIN_S, step,
+                                           state))
+    out["head"] = head_phase(state["model"], grad_ops)
+    del state, step
+    torch.cuda.empty_cache()
+    mcfg = get_config(SSM_ARCH).replace(n_layers=MAMBA_TRAIN_LAYERS)
+    for dtype in ("float32", "bfloat16"):
+        out[f"mamba_grad_{dtype}"] = grad_check(
+            "mamba", mcfg, MAMBA_TRAIN_S, lambda: plain_scan(ssm_mod), scan,
+            dtype, scan_controls(ssm_mod))
+    out["mamba_train"], state, step = train_steps("mamba", mcfg,
+                                                  MAMBA_TRAIN_S, scan)
+    del state, step
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase 12 in {out['phase_s']:.1f} s (target "
+        f"{TRAIN_TARGET_S:.0f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing to run",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO / "src_torch"))
     from repro_torch.kernels.mtl_grad import kernel as grad_kernel
     from repro_torch.kernels.mtl_grad import ops as grad_ops
     from repro_torch.kernels.mtl_score import kernel as score_kernel
@@ -3700,6 +4139,10 @@ def main() -> int:
     ssm_rows, ssm_err, ssm_cases, ssm_lanes_ms = ssm_kernel_phase()
     mamba = mamba_phase(ssm_ops)
 
+    # -- 12. LM training at full width ---------------------------------------
+    train = train_phase(fa_ops, ssm_ops, grad_ops)
+    grad_launches += train["head"]["launches"]["mtl_grad"]
+
     # -- results -----------------------------------------------------------
     main_row = next(b_ for b_ in by_batch
                     if b_["B"] == WAVE and b_["code_dtype"] == "f32")
@@ -3742,7 +4185,9 @@ def main() -> int:
                              "recovery children":
                                  rec["child_launches"]["mtl_grad"],
                              "verify and surrogates":
-                                 vs["launches"]["mtl_grad"]},
+                                 vs["launches"]["mtl_grad"],
+                             "MTL head on LM features":
+                                 train["head"]["launches"]["mtl_grad"]},
         "max_abs_err": grad_err,
         "ms": grad_row["kernel_ms"],
         "kernel_ms": grad_row["kernel_ms"],
@@ -3790,9 +4235,18 @@ def main() -> int:
         "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
-        "launches": lm["serve"]["launches"],
+        "launches": (lm["serve"]["launches"]
+                     + train["gemma_grad_float32"]["launches"]
+                     + train["gemma_grad_bfloat16"]["launches"]
+                     + train["gemma_train"]["launches"]),
         "launches_by_path": {"LM served wave": lm["serve"]["launches"],
-                             "LM f32 anchor": lm["anchor"]["launches"]},
+                             "LM f32 anchor": lm["anchor"]["launches"],
+                             "LM f32 grad check":
+                                 train["gemma_grad_float32"]["launches"],
+                             "LM bf16 grad check":
+                                 train["gemma_grad_bfloat16"]["launches"],
+                             "LM training steps":
+                                 train["gemma_train"]["launches"]},
         "launches_by_route": lm["serve"]["launches_by_route"],
         "routes": {"wgmma": {
             "source": "src_torch/repro_torch/kernels/flash_attention/csrc/"
@@ -3846,9 +4300,18 @@ def main() -> int:
         "route": "cuda",
         "source": "src_torch/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:63",
-        "launches": mamba["serve"]["launches"],
+        "launches": (mamba["serve"]["launches"]
+                     + train["mamba_grad_float32"]["launches"]
+                     + train["mamba_grad_bfloat16"]["launches"]
+                     + train["mamba_train"]["launches"]),
         "launches_by_path": {"mamba served wave": mamba["serve"]["launches"],
-                             "mamba f32 anchor": mamba["anchor"]["launches"]},
+                             "mamba f32 anchor": mamba["anchor"]["launches"],
+                             "mamba f32 grad check":
+                                 train["mamba_grad_float32"]["launches"],
+                             "mamba bf16 grad check":
+                                 train["mamba_grad_bfloat16"]["launches"],
+                             "mamba training steps":
+                                 train["mamba_train"]["launches"]},
         "max_abs_err": ssm_err,
         "entries": ["selective_scan", "mamba_scan (the served path)"],
         "ms": ssm_rows[0]["kernel_ms"],
@@ -3870,7 +4333,7 @@ def main() -> int:
         "solver": {"A": a, "B": b, "C": c, "D": d}, "mesh": mesh,
         "recovery": rec, "verify": vs,
         "sampler": sampler,
-        "lm": lm, "mamba": mamba}
+        "lm": lm, "mamba": mamba, "train": train}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,12 @@ ckpt_dir=)`` and :func:`resume`, with the fault harness
 :mod:`repro_torch.faults`), device round metrics (``metrics=True``), the
 streaming re-solver (:mod:`repro_torch.train.streaming`), the static
 checks (:mod:`repro_torch.analysis`, ``solve(..., verify="static")``), the
-Fig-4 real-data surrogates (:mod:`repro_torch.data.realworld`) and the LM
-serving paths.  The kernels are written by hand in CUDA C++ for
-``sm_90a``.
+Fig-4 real-data surrogates (:mod:`repro_torch.data.realworld`), the LM
+serving paths, and LM training (:mod:`repro_torch.train.steps`, the
+launcher ``python -m repro_torch.launch.train``, gradients through the
+attention and scan kernels), with ``MTLHead``
+(:mod:`repro_torch.core.head`) on a backbone's features.  The kernels
+are written by hand in CUDA C++ for ``sm_90a``.
 """
 from ._device import resolve_device
 

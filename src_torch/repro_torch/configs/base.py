@@ -4,14 +4,15 @@
 ``repro.configs.base`` (which imports no JAX), so that the port never
 imports the reference: the same fields, defaults and properties, and a
 config built in one package reads the same in the other.  Fields that
-only the reference's JAX programs read (``remat``, ``scan_layers``,
-``bf16_grad_boundary``, the MoE routing options) are kept so the schema
-stays one; the port's serving path ignores them.  ``ssm_chunk`` and
-``attn_impl`` choose no route for SSM layers in the port: in the
-reference they pick an XLA memory strategy (the chunked or the
-associative scan) or its Pallas kernel, while the port runs every
-selective scan through one function,
-:func:`repro_torch.kernels.ssm_scan.mamba_scan`.
+only the reference's JAX programs read (``scan_layers``, the MoE routing
+options) are kept so the schema stays one.  Serving ignores ``remat``
+and ``bf16_grad_boundary``; training reads them (per-layer
+rematerialization, the gradient cast).  ``ssm_chunk``, ``attn_impl``
+and ``attn_chunk`` choose no forward route in the port, which runs every
+attention and selective scan through its kernel; in training they pick
+the reference route whose twin the kernel's backward differentiates
+(:func:`repro_torch.models.attention.sdpa_twin`,
+:func:`repro_torch.models.ssm.mamba_scan_twin`).
 """
 from __future__ import annotations
 

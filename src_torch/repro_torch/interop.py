@@ -9,12 +9,17 @@ port's model has the reference model's ``version``.  A problem crosses
 with :func:`problem_from_numpy` (its Gram cache too, when the reference
 built one), and a spectral engine's warm carry with
 :func:`sv_carry_from_numpy`, a language model's parameter tree with
-:func:`lm_params_from_numpy`.  This module imports neither JAX nor the
-reference: the caller does the ``np.asarray``.
+:func:`lm_params_from_numpy` and a training state with
+:func:`train_state_from_numpy`.  The way back is :func:`lm_tree` (and
+:func:`lm_tree_to_numpy`): the port's parameters, gradients or moments
+in the reference's layout, which is also what a training checkpoint
+holds (:func:`train_state_tree`, :func:`load_train_state`).  This
+module imports neither JAX nor the reference: the caller does the
+``np.asarray``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,10 +94,13 @@ def sv_carry_from_numpy(carry: Dict[str, np.ndarray],
 
 
 def _tensor(a) -> torch.Tensor:
-    """A numpy array as a CPU tensor, bf16 (``ml_dtypes.bfloat16``, which
-    numpy holds as 2-byte words) kept bit for bit."""
+    """A numpy array (or a tensor) as a CPU tensor, bf16 kept bit for
+    bit: ``ml_dtypes.bfloat16`` and the 2-byte words (``|V2``) an npz
+    file gives back for it alike."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
     a = np.array(a, order="C")
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
@@ -106,54 +114,160 @@ def _fill(param: torch.Tensor, a, name: str) -> None:
         param.copy_(t)
 
 
-def _fill_layer(layer, tree, j: int, name: str) -> None:
-    """Layer ``j`` of a stacked reference layer tree into ``layer``."""
-    mamba = "mamba" in tree
-    for norm in ("norm1",) if mamba else ("norm1", "norm2"):
-        for leaf, a in tree[norm].items():
-            _fill(getattr(getattr(layer, norm), leaf), a[j],
-                  f"{name}.{norm}.{leaf}")
-    if mamba:
-        for leaf, a in tree["mamba"].items():
-            _fill(getattr(layer.mamba, leaf), a[j], f"{name}.mamba.{leaf}")
-        return
-    for w in ("wq", "wk", "wv", "wo"):
-        _fill(getattr(layer.attn, w), tree["attn"][w][j], f"{name}.attn.{w}")
-    for w, a in tree["mlp"].items():
-        _fill(getattr(layer.mlp, w), a[j], f"{name}.mlp.{w}")
+def _layer_slots(cfg: ModelConfig) -> List[Tuple[int, Optional[str], int]]:
+    """Where each port layer sits in the reference's tree, in layer order:
+    (segment index, ``attn_pattern`` entry or None, index on the
+    segment's stacked layer axis).  Super-block ``j``'s entry ``name``
+    is layer ``len(pattern) * j + index(name)`` of its segment."""
+    slots = []
+    for si, seg in enumerate(build_plan(cfg)):
+        if seg.kind in ("attn", "mamba"):
+            slots += [(si, None, j) for j in range(seg.count)]
+        else:                                # attn_pattern (LM checked)
+            names = _pattern_names(cfg)
+            slots += [(si, name, j) for j in range(seg.count)
+                      for name in names]
+    return slots
+
+
+def _ref_path(name: str, slots) -> Tuple[tuple, Optional[int]]:
+    """A port parameter name's path in the reference's tree and its index
+    on a stacked layer axis (None for the embedding, head and final
+    norm)."""
+    parts = name.split(".")
+    if parts[0] == "embed":
+        return ("embed", "table"), None
+    if parts[0] == "head":
+        return ("head", "w"), None
+    if parts[0] == "final_norm":
+        return ("final_norm", parts[1]), None
+    si, entry, j = slots[int(parts[1])]
+    return (("segments", si) + ((entry,) if entry else ())
+            + tuple(parts[2:])), j
+
+
+def _walk(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def lm_tree(tensors: Mapping[str, torch.Tensor],
+            cfg: ModelConfig) -> Dict[str, object]:
+    """Tensors keyed by the port's parameter names (``model.named_
+    parameters()``, or gradients or moments under those names) as a tree
+    in the reference's layout, on the CPU: ``embed.table``,
+    ``final_norm``, ``head`` (``{}`` when tied), and ``segments``, a list
+    of per-segment trees whose layer leaves are stacked on a leading
+    layer axis."""
+    slots = _layer_slots(cfg)
+    tree: Dict[str, object] = {"head": {}}
+    stacks: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    for name, t in tensors.items():
+        path, j = _ref_path(name, slots)
+        t = t.detach().cpu()
+        if j is None:
+            tree.setdefault(path[0], {})[path[1]] = t
+        else:
+            stacks.setdefault(path, {})[j] = t
+    segments: Dict[int, dict] = {}
+    for path, parts in stacks.items():
+        node = segments.setdefault(path[1], {})
+        for key in path[2:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack([parts[j] for j in range(len(parts))])
+    tree["segments"] = [segments[i] for i in range(len(segments))]
+    return tree
+
+
+def lm_tree_to_numpy(tensors: Mapping[str, torch.Tensor],
+                     cfg: ModelConfig) -> Dict[str, object]:
+    """:func:`lm_tree` as numpy arrays, to hold leaf by leaf against the
+    reference's ``jax.tree.map(np.asarray, params)`` (or its gradients);
+    bfloat16 leaves come back as float32, exactly."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        if node.dtype == torch.bfloat16:
+            node = node.to(torch.float32)
+        return node.numpy()
+    return conv(lm_tree(tensors, cfg))
+
+
+def load_lm_tree(tensors: Mapping[str, torch.Tensor], tree: Dict[str, object],
+                 cfg: ModelConfig) -> None:
+    """Copy a tree in the reference's layout (numpy arrays, bf16 as
+    ``ml_dtypes.bfloat16`` or as 2-byte words, or CPU tensors) into
+    tensors keyed by the port's parameter names, in place, bit for bit;
+    a shape that differs raises naming the leaf."""
+    slots = _layer_slots(cfg)
+    for name, t in tensors.items():
+        path, j = _ref_path(name, slots)
+        a = _walk(tree, path)
+        _fill(t, a if j is None else a[j], name)
 
 
 def lm_params_from_numpy(tree: Dict[str, object], cfg: ModelConfig,
                          device: DeviceLike = None) -> LM:
     """The port's :class:`~repro_torch.models.model.LM` on ``device``
     (default: the card) holding the reference's parameters
-    (``jax.tree.map(np.asarray, params)``): ``embed.table``,
-    ``final_norm``, ``head.w`` when untied, and per segment the layer
-    trees stacked on a leading layer axis (a ``"mamba"`` segment's
-    ``norm1`` and ``mamba`` leaves, index ``j``, go into layer ``j``).
-    Weights keep the reference's ``(d_in, d_out)`` layout and dtype, bit
-    for bit; super-block ``j``'s entry
-    ``name`` of an ``attn_pattern`` segment becomes layer
-    ``len(pattern) * j + index(name)``."""
+    (``jax.tree.map(np.asarray, params)``), laid out as :func:`lm_tree`
+    describes.  Weights keep the reference's ``(d_in, d_out)`` layout and
+    dtype, bit for bit."""
     model = LM(cfg, resolve_device(device))
-    _fill(model.embed, tree["embed"]["table"], "embed.table")
-    for leaf, a in tree["final_norm"].items():
-        _fill(getattr(model.final_norm, leaf), a, f"final_norm.{leaf}")
-    if model.head is not None:
-        _fill(model.head, tree["head"]["w"], "head.w")
-    first = 0
-    for seg, seg_tree in zip(build_plan(cfg), tree["segments"]):
-        if seg.kind in ("attn", "mamba"):
-            for j in range(seg.count):
-                _fill_layer(model.layers[first + j], seg_tree, j,
-                            f"layer {first + j}")
-            first += seg.count
-            continue
-        names = _pattern_names(cfg)          # attn_pattern (LM checked)
-        for j in range(seg.count):
-            for i, name in enumerate(names):
-                idx = first + len(names) * j + i
-                _fill_layer(model.layers[idx], seg_tree[name], j,
-                            f"layer {idx} ({name})")
-        first += seg.count * len(names)
+    load_lm_tree(dict(model.named_parameters()), tree, cfg)
     return model
+
+
+def train_state_tree(state: Dict[str, object]) -> Dict[str, object]:
+    """A port train state ``{"model", "opt"}`` as the reference's
+    ``{"params", "opt": {"mu", "nu", "count"}}`` in its layout, on the
+    CPU: what a checkpoint of either package holds."""
+    model, opt = state["model"], state["opt"]
+    cfg = model.cfg
+    return {"params": lm_tree(dict(model.named_parameters()), cfg),
+            "opt": {"mu": lm_tree(opt["mu"], cfg),
+                    "nu": lm_tree(opt["nu"], cfg),
+                    "count": opt["count"].detach().cpu()}}
+
+
+def load_train_state(state: Dict[str, object], tree: Dict[str, object]
+                     ) -> Dict[str, object]:
+    """Copy a tree laid out as :func:`train_state_tree` (the reference's
+    state as numpy arrays, or a checkpoint) into a port train state, in
+    place, bit for bit; returns the state."""
+    model, opt = state["model"], state["opt"]
+    cfg = model.cfg
+    load_lm_tree(dict(model.named_parameters()), tree["params"], cfg)
+    load_lm_tree(opt["mu"], tree["opt"]["mu"], cfg)
+    load_lm_tree(opt["nu"], tree["opt"]["nu"], cfg)
+    with torch.no_grad():
+        opt["count"].copy_(_tensor(tree["opt"]["count"]))
+    return state
+
+
+def train_state_from_numpy(tree: Dict[str, object], cfg: ModelConfig,
+                           device: DeviceLike = None) -> Dict[str, object]:
+    """The reference's train state (``jax.tree.map(np.asarray, state)``:
+    ``{"params", "opt": {"mu", "nu", "count"}}``) as a port train state
+    ``{"model", "opt"}`` on ``device`` (default: the card), parameters
+    trainable, the moments in the tree's dtype."""
+    dev = resolve_device(device)
+    model = LM(cfg, dev).requires_grad_(True)
+    names = dict(model.named_parameters())
+    slots = _layer_slots(cfg)
+
+    def like(moments):
+        out = {}
+        for name, p in names.items():
+            path, j = _ref_path(name, slots)
+            a = _walk(moments, path)
+            dt = _tensor(a if j is None else a[j]).dtype
+            out[name] = torch.empty(p.shape, dtype=dt, device=dev)
+        return out
+
+    opt = {"mu": like(tree["opt"]["mu"]), "nu": like(tree["opt"]["nu"]),
+           "count": torch.zeros((), dtype=torch.int32, device=dev)}
+    return load_train_state({"model": model, "opt": opt}, tree)

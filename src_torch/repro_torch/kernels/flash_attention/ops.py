@@ -6,14 +6,25 @@ to the hand-written kernel (or raise), CPU tensors always go to
 :func:`~.ref.attention_ref`.  There is no switch between the two and no
 fallback.  ``flash_attention.launches`` counts kernel launches, so a run
 can show that its attention went through the kernel.
+
+Gradients: the kernel has no backward, and its output, made by a ctypes
+launch, has no ``grad_fn``.  A call that wants a gradient passes
+``twin``, a differentiable function of (q, k, v) with the same value
+(the model passes the reference's XLA route,
+:func:`repro_torch.models.attention.sdpa_twin`); forward runs the
+kernel (or, on the CPU, the plain version) and backward returns the
+twin's vector-Jacobian product, recomputed
+(:func:`repro_torch._recompute.recompute_vjp`).  On the card such a call
+without a twin raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from . import kernel
+from ..._recompute import recompute_vjp
 from .ref import attention_ref
 
 
@@ -52,8 +63,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None,
-                    prefix_len: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    prefix_len: Optional[torch.Tensor] = None,
+                    twin: Optional[Callable] = None) -> torch.Tensor:
     """Attention of q (B, Sq, H, hd) over k, v (B, Sk, Hkv, hd) with GQA
     grouping, at the positions q_pos (B, Sq) and k_pos (B, Sk): the
     reference's ``_sdpa_naive`` with ``_mask_bias`` (key j counts when
@@ -64,7 +75,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     call with at least 64 query rows (Sq * H/Hkv) runs on the tensor
     cores and a call of at most 8 (a decode step) on the decode kernel
     (``kernel.route``).  The prefix-LM mask (``prefix_len``) is not
-    supported."""
+    supported.  A call under autograd with q, k or v requiring a
+    gradient differentiates ``twin(q, k, v)`` in backward (the module
+    docstring); on the card it needs one."""
     if prefix_len is not None:
         raise NotImplementedError(
             "the prefix-LM mask (paligemma) is not ported: ROADMAP Queue 1 "
@@ -73,10 +86,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
     if dev.type == "cpu":
-        return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                             causal=causal, window=window, softcap=softcap,
-                             scale=scale)
+        def plain(q, k, v):
+            return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                 causal=causal, window=window,
+                                 softcap=softcap, scale=scale)
+        if grad and twin is not None:
+            return recompute_vjp(plain, twin, (q, k, v))
+        return plain(q, k, v)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on the CPU or a CUDA device, "
                          f"not {dev}")
@@ -87,18 +106,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if H // k.shape[2] > kernel.ROWS_PER_CTA:
         raise ValueError(f"group {H // k.shape[2]} exceeds the kernel's "
                          f"{kernel.ROWS_PER_CTA}")
+    if grad and twin is None:
+        raise ValueError("flash_attention on the card has no backward of "
+                         "its own: a call that wants a gradient must pass "
+                         "twin=, a differentiable function of (q, k, v)")
     if Sq == 0 or B == 0:
         return torch.empty_like(q)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on a 16-byte boundary")
-    out, route = kernel.launch(q, k, v, q_pos, k_pos, causal, window, softcap,
-                               scale)
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[route] += 1
-    return out
+
+    def launch(q, k, v):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("q, k and v must start on a 16-byte boundary")
+        out, route = kernel.launch(q, k, v, q_pos, k_pos, causal, window,
+                                   softcap, scale)
+        flash_attention.launches += 1
+        flash_attention.launches_by_route[route] += 1
+        return out
+
+    if grad:
+        return recompute_vjp(launch, twin, (q, k, v))
+    return launch(q, k, v)
 
 
 flash_attention.launches = 0

@@ -16,14 +16,25 @@ kernel's types, shapes and strides, on one device.  Anything else takes
 the slow path, which explains a refusal (:func:`_check`) or converts
 what the kernel takes in another form (dt, A and h0 to float32, a
 non-unit last stride).
+
+Gradients: the kernel has no backward.  A :func:`mamba_scan` call that
+wants a gradient passes ``twin``, a differentiable function of its eight
+inputs with the same value (the mixer passes the reference's XLA route,
+:func:`repro_torch.models.ssm.mamba_scan_twin`); forward runs the kernel
+(or, on the CPU, the plain version) and backward returns the twin's
+vector-Jacobian product, recomputed
+(:func:`repro_torch._recompute.recompute_vjp`).  Such a call refuses a
+carried state (``h0``) or an in-place ``h_out``, and on the card it
+needs a twin.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from . import kernel
+from ..._recompute import recompute_vjp
 from .ref import mamba_scan_ref, selective_scan_ref
 
 _F32 = torch.float32
@@ -194,7 +205,8 @@ def mamba_scan(x: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
                Bc: torch.Tensor, Cc: torch.Tensor, A_log: torch.Tensor,
                D: torch.Tensor, z: torch.Tensor, *,
                h0: Optional[torch.Tensor] = None,
-               h_out: Optional[torch.Tensor] = None
+               h_out: Optional[torch.Tensor] = None,
+               twin: Optional[Callable] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Mamba-1 mixer's scan with its elementwise chain (see
     :func:`~.ref.mamba_scan_ref`): dt = softplus(dt_lin + dt_bias) in
@@ -207,7 +219,14 @@ def mamba_scan(x: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
     copy).  On the card x, dt_lin, z, Bc and Cc share one dtype, float32
     or bfloat16 (dt_bias, D, A_log, h0 are taken as float32), z may be a
     strided view (unit stride over I) and N is one of
-    ``kernel.STATE_SIZES``."""
+    ``kernel.STATE_SIZES``.  A call under autograd with an input that
+    requires a gradient differentiates ``twin`` in backward (the module
+    docstring): it takes no ``h0`` or ``h_out``, and on the card it needs
+    a twin."""
+    inputs = (x, dt_lin, dt_bias, Bc, Cc, A_log, D, z)
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor)
+                                       and t.requires_grad for t in inputs):
+        return _differentiable(inputs, h0, h_out, twin)
     strides = _fused_ready(x, dt_lin, dt_bias, Bc, Cc, A_log, D, z, h0,
                            h_out)
     if strides is None:
@@ -241,3 +260,23 @@ def mamba_scan(x: torch.Tensor, dt_lin: torch.Tensor, dt_bias: torch.Tensor,
                               h_out, strides=strides)
     selective_scan.launches += 1
     return out
+
+
+def _differentiable(inputs, h0, h_out, twin):
+    """:func:`mamba_scan` under autograd: the forward as without it, the
+    backward ``twin``'s vector-Jacobian product."""
+    if h0 is not None or h_out is not None:
+        raise ValueError("mamba_scan cannot take a gradient through a "
+                         "carried state: a call that wants one passes no "
+                         "h0 and no h_out")
+    dev = _check([("x", inputs[0]), ("Bc", inputs[3]),
+                  ("dt_lin", inputs[1]), ("z", inputs[7]),
+                  ("Cc", inputs[4]), ("dt_bias", inputs[2]),
+                  ("D", inputs[6]), ("A_log", inputs[5])], _fused_shapes)
+    if twin is None:
+        if dev.type == "cpu":
+            return mamba_scan_ref(*inputs)
+        raise ValueError("mamba_scan on the card has no backward of its "
+                         "own: a call that wants a gradient must pass twin=, "
+                         "a differentiable function of its eight inputs")
+    return recompute_vjp(lambda *t: mamba_scan(*t), twin, inputs)

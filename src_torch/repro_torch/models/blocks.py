@@ -4,8 +4,12 @@ Port of the dense part of ``repro.models.blocks``.  The reference
 compiles an architecture into a plan of segments and runs each segment's
 stacked layers with ``lax.scan``; the port keeps the plan, unrolls it
 into an ``nn.ModuleList`` of layers in the reference's order, and runs
-them with a Python loop (no scan; ``cfg.remat`` and ``cfg.scan_layers``
-only shape the reference's compiled programs and are ignored here).
+them with a Python loop (no scan: ``cfg.scan_layers`` only shapes the
+reference's compiled programs).  Training reads two more fields: under
+``cfg.remat`` the training trunk rematerializes each layer in backward
+(:func:`repro_torch.models.model.lm_loss`), and under
+``cfg.bf16_grad_boundary`` the layers pass their inputs through
+:func:`grad_cast`, as the reference's do.
 
 Ported segments: ``"attn"`` (uniform attention layers),
 ``"attn_pattern"`` (super-blocks cycling ``cfg.attn_pattern``, gemma2's
@@ -71,15 +75,35 @@ def segment_windows(cfg: ModelConfig, seg: Segment) -> List[Optional[int]]:
     raise ValueError(seg.kind)
 
 
+class _GradCast(torch.autograd.Function):
+    """Identity forward; backward casts the cotangent to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_cast(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_grad_cast``: x, with its cotangent cast to x's
+    dtype in backward (the reference keeps f32 activation gradients from
+    doubling the bytes of its tensor-parallel all-reduces)."""
+    return _GradCast.apply(x)
+
+
 class AttnLayer(nn.Module):
     """Pre-norm attention + MLP residual layer (the reference's
-    ``_attn_layer`` without MoE, cross-attention or the training-only
-    gradient cast)."""
+    ``_attn_layer`` without MoE or cross-attention)."""
 
     def __init__(self, cfg: ModelConfig, window: Optional[int],
                  device: torch.device):
         super().__init__()
         self.window = window
+        self.grad_boundary = cfg.bf16_grad_boundary
         self.norm1 = Norm(cfg, cfg.d_model, device)
         self.attn = Attention(cfg, device)
         self.norm2 = Norm(cfg, cfg.d_model, device)
@@ -93,14 +117,23 @@ class AttnLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: Optional[dict] = None) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), positions=positions, cache=cache,
+        cast = self.grad_boundary and torch.is_grad_enabled()
+        if cast:
+            x = grad_cast(x)
+        h = self.norm1(x)
+        if cast:
+            h = grad_cast(h)          # cotangent entering the qkv products
+        x = x + self.attn(h, positions=positions, cache=cache,
                           window=self.window)
-        return x + self.mlp(self.norm2(x))
+        h = self.norm2(x)
+        if cast:
+            h = grad_cast(h)          # cotangent entering the mlp products
+        return x + self.mlp(h)
 
 
 class MambaLayer(nn.Module):
-    """Pre-norm Mamba-1 residual layer (the reference's ``_mamba_layer``
-    without the training-only gradient cast).  Positions are not read.
+    """Pre-norm Mamba-1 residual layer (the reference's ``_mamba_layer``).
+    Positions are not read.
     With a cache ``{"state", "conv"}`` the scan and the conv continue
     from it, and both are written in place (the serving engine owns
     them, as it owns the attention layers' ring buffers): the state by
@@ -108,6 +141,7 @@ class MambaLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
+        self.grad_boundary = cfg.bf16_grad_boundary
         self.norm1 = Norm(cfg, cfg.d_model, device)
         self.mamba = Mamba1(cfg, device)
 
@@ -117,6 +151,8 @@ class MambaLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: Optional[dict] = None) -> torch.Tensor:
+        if self.grad_boundary and torch.is_grad_enabled():
+            x = grad_cast(x)
         h = self.norm1(x)
         if cache is None:
             out, _, _ = self.mamba(h)

@@ -8,9 +8,18 @@ it where the reference takes ``(params, cfg)``:
 
   init_params(cfg, generator, device)   -> LM (random init, seeded)
   forward(model, batch)                 -> logits (B, S, V), no cache
+  hidden_states(model, batch)           -> final-normed trunk output
   init_cache(cfg, batch, max_len, device) -> list of per-layer caches
   prefill(model, batch, cache)          -> (last-token logits (B, V), cache)
   decode_step(model, token, pos, cache) -> (logits (B, V), cache)
+  lm_loss(model, batch)                 -> (total, {"nll", "aux"}), with grad
+
+The serving entry points run without autograd.  :func:`lm_loss` is the
+training side: the trunk with gradients on, each layer rematerialized in
+backward under ``cfg.remat`` (:func:`repro_torch._recompute.recompute_vjp`,
+the port's ``jax.checkpoint``), the LM kernels differentiated through
+their twins.  Parameters are created with ``requires_grad=False``;
+training switches it on (:func:`repro_torch.train.steps.init_train_state`).
 
 ``batch`` is ``{"tokens": (B, S) int}``.  Positions are ``0..S-1`` for
 every row, padding included, as in the reference; Mamba layers do not
@@ -21,14 +30,16 @@ VLM, learned positions and MTP raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .._device import DeviceLike, resolve_device
+from .._recompute import recompute_vjp
 from ..configs.base import ModelConfig
-from .blocks import build_plan, init_segment_cache, segment_layers
+from .blocks import build_plan, grad_cast, init_segment_cache, segment_layers
 from .common import Norm, dtype_of, embed, truncated_normal_, unembed
 from .ssm import MAMBA2_NOT_PORTED
 
@@ -118,21 +129,43 @@ def _positions(B: int, S: int, device: torch.device) -> torch.Tensor:
 
 
 def _trunk(model: LM, x: torch.Tensor, positions: torch.Tensor,
-           caches: Optional[List[dict]] = None) -> torch.Tensor:
+           caches: Optional[List[dict]] = None,
+           remat: bool = False) -> torch.Tensor:
+    """The layers and the final norm.  ``remat`` (training, no cache):
+    each layer runs without a graph and is re-run in backward, its
+    parameters the recomputation's leaves (the reference's
+    ``jax.checkpoint`` of the layer scan's body)."""
     for i, layer in enumerate(model.layers):
-        x = layer(x, positions=positions,
-                  cache=None if caches is None else caches[i])
+        if remat:
+            run = functools.partial(_run_layer, layer, positions)
+            x = recompute_vjp(run, run, (x,), tuple(layer.parameters()))
+        else:
+            x = layer(x, positions=positions,
+                      cache=None if caches is None else caches[i])
     return model.final_norm(x)
+
+
+def _run_layer(layer: nn.Module, positions: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    return layer(x, positions=positions)
+
+
+@torch.no_grad()
+def hidden_states(model: LM, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+    """The trunk's output after the final norm, (B, S, d_model), without
+    a cache: the features a head on the backbone reads."""
+    tokens = _tokens(model, batch)
+    B, S = tokens.shape
+    x = embed(model.embed, tokens, model.cfg)
+    return _trunk(model, x, _positions(B, S, model.device))
 
 
 @torch.no_grad()
 def forward(model: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence forward without a cache: logits (B, S, V)."""
-    tokens = _tokens(model, batch)
-    B, S = tokens.shape
-    x = embed(model.embed, tokens, model.cfg)
-    x = _trunk(model, x, _positions(B, S, model.device))
-    return unembed(model.embed, model.head, x, model.cfg)
+    return unembed(model.embed, model.head, hidden_states(model, batch),
+                   model.cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -156,6 +189,29 @@ def prefill(model: LM, batch: Dict[str, torch.Tensor], cache: List[dict]
     x = _trunk(model, x, _positions(B, S, model.device), cache)
     logits = unembed(model.embed, model.head, x[:, -1:], model.cfg)
     return logits[:, 0], cache
+
+
+def lm_loss(model: LM, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``lm_loss`` with gradients: float32 logits, mean of
+    logsumexp minus the gold logit over ``batch["targets"]`` (B, S), plus
+    ``router_aux_coef`` times the auxiliary loss (0: no ported layer has
+    one).  Returns (total, {"nll", "aux"}), device scalars."""
+    cfg = model.cfg
+    tokens = _tokens(model, {"tokens": batch["tokens"]})
+    targets = torch.as_tensor(batch["targets"], device=model.device)
+    B, S = tokens.shape
+    x = embed(model.embed, tokens, cfg)
+    x = _trunk(model, x, _positions(B, S, model.device), remat=cfg.remat)
+    logits = unembed(model.embed, model.head, x, cfg)
+    if cfg.bf16_grad_boundary:
+        logits = grad_cast(logits)    # model-dtype cotangent into unembed
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].to(torch.int64))[..., 0]
+    nll = (logz - gold).mean()
+    aux = torch.zeros((), dtype=torch.float32, device=model.device)
+    return nll + cfg.router_aux_coef * aux, {"nll": nll, "aux": aux}
 
 
 @torch.no_grad()

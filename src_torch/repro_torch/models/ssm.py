@@ -16,7 +16,15 @@ kernel under ``attn_impl="pallas"`` without a state, the associative
 scan, and a ``lax.scan`` from a carried state); the port's kernel takes
 the carried state, so the cache-free forward, a prefill from the
 engine's zero state and each decode step all run it, and ``ssm_chunk``
-and ``attn_impl`` are accepted and do not change the result.
+and ``attn_impl`` do not change the forward result.
+
+Training differentiates the reference's XLA routes: the kernel has no
+backward, so a cache-free call under autograd hands the kernel
+:func:`mamba_scan_twin`, the mixer's chain around the reference's
+chunked scan (``_chunked_ssd1``, each chunk rematerialized, when
+``cfg.ssm_chunk`` divides S) or its associative scan
+(``_assoc_scan``), and backward returns its vector-Jacobian product,
+recomputed.
 
 State layout: ``h`` (B, I, N) float32, I = ``expand * d_model``, N =
 ``ssm_state``; the conv cache (B, K-1, I) in the model's dtype, the last
@@ -25,6 +33,7 @@ K-1 inputs of the causal conv.  Mamba-2 (zamba2) raises
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -32,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .._recompute import recompute_vjp
 from ..configs.base import ModelConfig
 from ..kernels.ssm_scan import ops as ssm_ops
 from .common import dense_param, dtype_of, init_dense
@@ -68,6 +78,74 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b, new_cache
 
 
+# --- the reference's XLA scans, the kernel's differentiable twins -------------
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t along axis 1 from h_0 = 0, as a log-depth
+    inclusive scan (the reference's ``lax.associative_scan`` with the
+    same combine).  a, b (B, S, ...).  Returns (cumulative product of a,
+    h)."""
+    S, d = a.shape[1], 1
+    while d < S:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], 1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+        d *= 2
+    return a, b
+
+
+def _ssd1_chunk(h0, x_i, dt_i, b_i, c_i, A):
+    """One chunk of :func:`_chunked_ssd1` from the state h0: (its last
+    state, y of the chunk)."""
+    f32 = torch.float32
+    a = torch.exp(dt_i[..., None] * A)
+    bu = (dt_i * x_i.to(f32))[..., None] * b_i.to(f32)[..., None, :]
+    cum_a, h_local = _assoc_scan(a, bu)
+    h = h_local + cum_a * h0[:, None]
+    return h[:, -1], torch.einsum("bsin,bsn->bsi", h, c_i.to(f32))
+
+
+def _chunked_ssd1(xs, dt, B_ssm, C_ssm, A, chunk: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's fused chunked scan -> (y (B, S, I) f32, h_final
+    (B, I, N)): the (B, chunk, I, N) state of one chunk at a time, each
+    chunk rematerialized in backward (``jax.checkpoint(body)``)."""
+    B, S, I = xs.shape
+    h = torch.zeros((B, I, B_ssm.shape[-1]), dtype=torch.float32,
+                    device=xs.device)
+    ys = []
+    for c in range(0, S, chunk):
+        part = (h, xs[:, c:c + chunk], dt[:, c:c + chunk],
+                B_ssm[:, c:c + chunk], C_ssm[:, c:c + chunk], A)
+        h, y = recompute_vjp(_ssd1_chunk, _ssd1_chunk, part)
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
+def mamba_scan_twin(x, dt_lin, dt_bias, Bc, Cc, A_log, D, z, *,
+                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``mamba1_forward`` from its projections to the
+    gate, without a carried state, differentiable: dt = softplus(dt_lin +
+    dt_bias) in float32, A = -exp(A_log), the chunked scan when ``chunk``
+    divides S (and S > chunk), else the associative scan, then (y + D
+    x).to(x.dtype) * silu(z).  Returns (out, h_final), as
+    :func:`~repro_torch.kernels.ssm_scan.mamba_scan`."""
+    f32 = torch.float32
+    dt = F.softplus(dt_lin + dt_bias).to(f32)
+    A = -torch.exp(A_log)
+    S = x.shape[1]
+    if chunk and S > chunk and S % chunk == 0:
+        y, h = _chunked_ssd1(x, dt, Bc, Cc, A, chunk)
+    else:
+        a = torch.exp(dt[..., None] * A)
+        bu = (dt * x.to(f32))[..., None] * Bc.to(f32)[..., None, :]
+        _, hs = _assoc_scan(a, bu)
+        h = hs[:, -1]
+        y = torch.einsum("bsin,bsn->bsi", hs, Cc.to(f32))
+    y = y + D * x.to(f32)
+    return y.to(x.dtype) * F.silu(z), h
+
+
 class Mamba1(nn.Module):
     """One Mamba-1 mixer: in_proj, causal conv, SiLU, x_proj to (dt, B,
     C), dt_proj with softplus, the selective scan, the D skip, the SiLU
@@ -80,7 +158,7 @@ class Mamba1(nn.Module):
         D, I, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
         K, R = cfg.ssm_conv, dt_rank(cfg)
         dt, f32 = dtype_of(cfg), torch.float32
-        self.rank, self.n_state = R, N
+        self.rank, self.n_state, self.chunk = R, N, cfg.ssm_chunk
         self.in_proj = dense_param(D, 2 * I, dt, device)
         self.conv_w = _param((K, I), dt, device)
         self.conv_b = _param((I,), dt, device)
@@ -134,10 +212,12 @@ class Mamba1(nn.Module):
         # the scan with the reference's chain around it: dt = softplus(
         # dt_in @ dt_proj + dt_bias) (model dtype + f32 bias promotes to
         # f32), A = -exp(A_log), then (y + D xs).to(x.dtype) * silu(z)
+        twin = (functools.partial(mamba_scan_twin, chunk=self.chunk)
+                if torch.is_grad_enabled() else None)
         y, new_state = ssm_ops.mamba_scan(xs, dt_in @ self.dt_proj,
                                           self.dt_bias, B_ssm, C_ssm,
                                           self.A_log, self.D, z, h0=state,
-                                          h_out=state_out)
+                                          h_out=state_out, twin=twin)
         return y @ self.out_proj, new_state, new_conv
 
 

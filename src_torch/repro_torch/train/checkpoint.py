@@ -16,7 +16,9 @@ for byte in what matters, so each package loads the other's stores:
   fires ``"pre_rename"`` between the write and the rename.
 
 Loaded arrays come back as CPU tensors; callers move them where they
-serve.  A corrupt or truncated step raises
+serve.  A bfloat16 tensor is written as its 2-byte words (``|V2``), the
+form an npz file gives back for the reference's ``ml_dtypes.bfloat16``
+arrays, and read back as bfloat16.  A corrupt or truncated step raises
 :class:`CheckpointCorruptError` naming it, and loading "the latest"
 skips such steps with a warning.
 """
@@ -64,10 +66,23 @@ class CheckpointCorruptError(CheckpointError):
         self.path = path
 
 
+_BF16_WORDS = np.dtype("V2")
+
+
 def _as_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(_BF16_WORDS)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _as_tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.array(arr)
+    if arr.dtype == _BF16_WORDS:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _flatten(tree, prefix: str = "", out: Optional[Dict] = None) -> Dict:
@@ -95,7 +110,7 @@ def _unflatten(flat: Dict[str, np.ndarray]):
         cur = tree
         for k in parts[:-1]:
             cur = cur.setdefault(k, {})
-        cur[parts[-1]] = torch.from_numpy(np.array(arr))
+        cur[parts[-1]] = _as_tensor(arr)
     return _listify(tree)
 
 

@@ -1,8 +1,10 @@
 """The port stands alone: nothing under ``src_torch/`` and not
 ``chip_smoke.py`` imports JAX or the reference package, importing the
-serving, solver, LM and Mamba paths leaves JAX unloaded, and the entry
+serving, solver, LM and Mamba paths leaves JAX unloaded, training leaves
+``torch._dynamo`` unloaded and the environment unchanged, and the entry
 points default to the card."""
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -34,6 +36,34 @@ def test_port_files_import_neither_jax_nor_repro():
     bad = [(f.relative_to(ROOT).as_posix(), mod)
            for f in files for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def _torch_calls(path):
+    """Dotted names under ``torch`` that a file reads or imports."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            parts, cur = [node.attr], node.value
+            while isinstance(cur, ast.Attribute):
+                parts.append(cur.attr)
+                cur = cur.value
+            if isinstance(cur, ast.Name):
+                yield ".".join([cur.id] + parts[::-1])
+    yield from _imported_modules(path)
+
+
+def test_port_modules_use_neither_torch_optim_nor_checkpoint():
+    """``torch.optim``'s step and ``torch.utils.checkpoint`` import
+    ``torch._dynamo``, which writes ``os.environ``: the training path
+    has its own AdamW and recomputation.  (``chip_smoke.py`` compiles
+    FlexAttention for a library timing, outside the port.)"""
+    banned = ("torch.optim", "torch.utils.checkpoint", "torch._dynamo",
+              "torch.compile")
+    files = sorted((ROOT / "src_torch").rglob("*.py"))
+    bad = [(f.relative_to(ROOT).as_posix(), name)
+           for f in files for name in _torch_calls(f)
+           if name and name.startswith(banned)]
     assert not bad, bad
 
 
@@ -272,6 +302,98 @@ def test_the_mamba_serving_path_leaves_jax_unloaded():
     assert proc.stdout.strip() == "clean"
 
 
+def test_the_training_path_leaves_jax_and_dynamo_unloaded(tmp_path):
+    """One TINY train step with remat on, a killed-and-resumed
+    ``train_loop``, an ``MTLHead`` fit and the roofline run without JAX
+    or the reference, without loading ``torch._dynamo`` and without
+    writing the process's environment."""
+    code = (
+        "import os, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src_torch')!r})\n"
+        "env = dict(os.environ)\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import repro_torch.launch.train, repro_torch.launch.roofline as rf\n"
+        "from repro_torch.configs.base import ModelConfig\n"
+        "from repro_torch.core.head import MTLHead, MTLHeadConfig\n"
+        "from repro_torch.data.tokens import (SyntheticTokenStream,\n"
+        "                                     TokenPipelineSpec)\n"
+        "from repro_torch.train.loop import train_loop\n"
+        "from repro_torch.train.steps import (TrainConfig, init_train_state,\n"
+        "                                     make_train_step)\n"
+        "cfg = ModelConfig(arch_id='tiny', n_layers=2, d_model=64,\n"
+        "                  n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,\n"
+        "                  dtype='float32', remat=True)\n"
+        "tcfg = TrainConfig(total_steps=4, warmup_steps=1)\n"
+        "stream = SyntheticTokenStream(TokenPipelineSpec(128, 16, 2))\n"
+        "batches = [stream.batch(i) for i in range(4)]\n"
+        "new = lambda: init_train_state(cfg, tcfg,\n"
+        "    torch.Generator().manual_seed(0), device='cpu')\n"
+        "step = make_train_step(cfg, tcfg)\n"
+        "state, m = step(new(), {'tokens': torch.from_numpy(batches[0][0]),\n"
+        "                        'targets': torch.from_numpy(batches[0][1])})\n"
+        "assert torch.isfinite(m['loss']) and int(state['opt']['count']) == 1\n"
+        f"d = {str(tmp_path / 'ck')!r}\n"
+        "train_loop(step, new(), batches, 2, ckpt_dir=d, log_fn=print)\n"
+        "train_loop(step, new(), batches, 4, ckpt_dir=d, log_fn=print)\n"
+        "X = np.random.default_rng(0).standard_normal((3, 20, 8))\n"
+        "head = MTLHead(MTLHeadConfig(rounds=2, rank=2)).fit_features(\n"
+        "    X.astype(np.float32), X[..., 0].astype(np.float32),\n"
+        "    device='cpu')\n"
+        "from repro_torch.configs import INPUT_SHAPES\n"
+        "assert head.W.shape == (8, 3)\n"
+        "assert rf.model_flops(cfg, INPUT_SHAPES['train_4k']) > 0\n"
+        "assert dict(os.environ) == env, 'the run wrote the environment'\n"
+        "assert 'torch._dynamo' not in sys.modules, 'torch._dynamo loaded'\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "resume: restarting from checkpoint step 2" in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == "clean"
+
+
+def test_the_train_launcher_runs_on_the_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--arch", "gemma2-2b", "--steps", "3", "--device", "cpu"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src_torch"),
+             "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("arch=gemma2-2b layout=replicated (one "
+                               "device)"), lines[0]
+    assert lines[-1].startswith("final loss "), lines[-1]
+    final = float(lines[-1].split()[2])
+    assert 0 < final < 100
+
+
+def test_a_grad_requiring_scan_refuses_a_carried_state():
+    import torch
+    sys.path.insert(0, str(ROOT / "src_torch"))
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    g = torch.Generator().manual_seed(0)
+    B, S, I, N = 1, 4, 8, 4
+    x, dt_lin, z = (torch.randn(B, S, I, generator=g) for _ in range(3))
+    Bc, Cc = (torch.randn(B, S, N, generator=g) for _ in range(2))
+    dt_bias, D = torch.zeros(I), torch.ones(I)
+    A_log = torch.zeros(I, N)
+    x.requires_grad_(True)
+    h = torch.zeros(B, I, N)
+    args = (x, dt_lin, dt_bias, Bc, Cc, A_log, D, z)
+    for kw in ({"h0": h}, {"h_out": h}, {"h0": h, "h_out": h}):
+        with pytest.raises(ValueError, match="carried state"):
+            ssm_ops.mamba_scan(*args, **kw)
+    out, _ = ssm_ops.mamba_scan(*args)            # no state: differentiable
+    assert out.grad_fn is not None
+    with torch.no_grad():                         # serving: the state is fine
+        ssm_ops.mamba_scan(*args, h0=h, h_out=h)
+
+
 def test_entry_points_default_to_the_card():
     """``device=None`` means CUDA; on a host without a card the problem
     constructor and the front door raise instead of using the CPU."""
@@ -315,3 +437,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.analysis.__main__ import main as analysis_cli
     with pytest.raises(RuntimeError, match="CUDA"):
         analysis_cli(["--layouts", "sim", "--no-lint"])
+    from repro_torch.launch.train import main as train_cli
+    from repro_torch.train.steps import TrainConfig, init_train_state
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli(["--smoke", "--steps", "1"])
